@@ -1,0 +1,284 @@
+// QIM/DCT stripe kernels for Hopper (sm_90a), with a plain C interface
+// bound by ctypes (stegotpu_torch/ops/_build.py, ops/stripe_kernel.py).
+//
+// K1 qim_embed_kernel replaces the TPU kernel _embed_kernel
+//    (stegotpu/ops/pallas_kernel.py:529, body _embed_core :501).
+// K2 qim_extract_packed_kernel replaces _extract_kernel_packed
+//    (stegotpu/ops/pallas_kernel.py:577).
+//
+// Design. One thread owns one 8x8 block: it loads the block as 8 rows of
+// 8 bytes (neighbouring threads hold neighbouring blocks of a block row,
+// so each row load of a warp is 256 contiguous bytes), computes only the
+// rn = num_ac/8 + 1 coefficient rows that hold payload slots with a
+// separable DCT in FP32 FMAs, and writes its result. The grid is
+// (block columns / 128, block rows, frames). The TPU kernel's stripe
+// grid, lane padding and compact payload rows were Mosaic tiling devices
+// and are gone: the payload is read in wire order (block n, slot j at
+// n*num_ac + j) and any width W % 8 == 0 works.
+//
+// Bound on the H100: memory traffic, about 2 B of u8 pixels per pixel
+// (read + write; extract writes rn/64 B) plus num_ac/64 B of payload per
+// pixel for embed, against 2*rn FP32 FMAs per pixel for the forward
+// transform and as many again for the inverse (8 per pixel for embed at
+// the default num_ac=10) — far under the FP32 rate for the bytes it
+// moves. No tensor cores are used, so no TF32 can enter:
+// the wire contract is IEEE f32 (scipy's DCT in the reference). Build
+// WITHOUT --use_fast_math: fast math turns y/delta into an approximate
+// divide and flushes denormals, which moves round(y/delta) at the
+// rounding boundary.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ void load_rows(const uint8_t* __restrict__ p, int w,
+                                          uint2 (&raw)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    raw[r] = __ldg(reinterpret_cast<const uint2*>(p + static_cast<size_t>(r) * w));
+}
+
+__device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
+                                           const uint2 (&raw)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<uint2*>(p + static_cast<size_t>(r) * w) = raw[r];
+}
+
+__device__ __forceinline__ void unpack_rows(const uint2 (&raw)[8], float (&x)[8][8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint32_t word = c < 4 ? raw[r].x : raw[r].y;
+      x[r][c] = static_cast<float>((word >> (8 * (c & 3))) & 0xFFu);
+    }
+}
+
+// y[g][v] = sum_r sum_c M[g][r] x[r][c] M[v][c] for the slot rows g < RN.
+template <int RN>
+__device__ __forceinline__ void forward_rows(const float (&x)[8][8], const float* m,
+                                             float (&y)[RN][8]) {
+  float t[RN][8];
+#pragma unroll
+  for (int g = 0; g < RN; ++g)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc = fmaf(m[g * 8 + r], x[r][c], acc);
+      t[g][c] = acc;
+    }
+#pragma unroll
+  for (int g = 0; g < RN; ++g)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc = fmaf(t[g][c], m[v * 8 + c], acc);
+      y[g][v] = acc;
+    }
+}
+
+// Floor-mod 2 of an integral float (jnp.mod / torch.remainder semantics,
+// right for negative q too). Exact for |q| < 2^24.
+__device__ __forceinline__ float parity(float q) {
+  return q - 2.0f * floorf(q * 0.5f);
+}
+
+template <int RN>
+__global__ void __launch_bounds__(kThreads)
+qim_embed_kernel(const uint8_t* __restrict__ frames,
+                 const uint8_t* __restrict__ payload,
+                 uint8_t* __restrict__ stego, const float* __restrict__ dct,
+                 int h, int w, int num_ac, long long cap, long long total_bits,
+                 long long bit_offset, float delta) {
+  __shared__ float m[64];
+  if (threadIdx.x < 64) m[threadIdx.x] = dct[threadIdx.x];
+  __syncthreads();
+
+  const int bw = w / 8;
+  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bx >= bw) return;
+  const int by = blockIdx.y;
+  const int f = blockIdx.z;
+  const long long blk = static_cast<long long>(by) * bw + bx;
+  // payload bits left at this block's first slot (global bit indices)
+  const long long rem = total_bits - bit_offset - f * cap - blk * num_ac;
+  const size_t off = (static_cast<size_t>(f) * h + static_cast<size_t>(by) * 8) * w +
+                     static_cast<size_t>(bx) * 8;
+
+  uint2 raw[8];
+  load_rows(frames + off, w, raw);
+  if (rem <= 0 || !(delta > 0.0f)) {  // never entered, or delta <= 0: passthrough
+    store_rows(stego + off, w, raw);
+    return;
+  }
+
+  float x[8][8];
+  unpack_rows(raw, x);
+  float y[RN][8];
+  forward_rows<RN>(x, m, y);
+
+  // directional-parity QIM + lattice snap, as a sparse coefficient delta
+  const uint8_t* bits = payload + f * cap + blk * num_ac;
+  float dy[RN][8];
+#pragma unroll
+  for (int g = 0; g < RN; ++g)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int c = g * 8 + v;
+      float d = 0.0f;
+      if (c >= 1 && c <= num_ac && c - 1 < rem) {
+        const float b = static_cast<float>(bits[c - 1]);
+        const float q = rintf(y[g][v] / delta);  // round half to even
+        const float adj = parity(q) != b ? (b == 1.0f ? 1.0f : -1.0f) : 0.0f;
+        d = (q + adj) * delta - y[g][v];
+      }
+      dy[g][v] = d;
+    }
+
+  // pixel image of the sparse delta: d[r][c] = sum_g sum_v M[g][r] dy[g][v] M[v][c]
+  float u[RN][8];
+#pragma unroll
+  for (int g = 0; g < RN; ++g)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) acc = fmaf(dy[g][v], m[v * 8 + c], acc);
+      u[g][c] = acc;
+    }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int g = 0; g < RN; ++g) acc = fmaf(m[g * 8 + r], u[g][c], acc);
+      const float o = fminf(fmaxf(x[r][c] + acc, 0.0f), 255.0f);
+      const uint32_t byte = static_cast<uint32_t>(static_cast<int>(o));  // truncating
+      if (c < 4) lo |= byte << (8 * c);
+      else hi |= byte << (8 * (c - 4));
+    }
+    raw[r] = make_uint2(lo, hi);
+  }
+  store_rows(stego + off, w, raw);
+}
+
+template <int RN>
+__global__ void __launch_bounds__(kThreads)
+qim_extract_packed_kernel(const uint8_t* __restrict__ frames,
+                          uint8_t* __restrict__ packed,
+                          const float* __restrict__ dct, int h, int w,
+                          int stripe_blocks, int rows_pad, float delta) {
+  __shared__ float m[64];
+  if (threadIdx.x < 64) m[threadIdx.x] = dct[threadIdx.x];
+  __syncthreads();
+
+  const int bw = w / 8;
+  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bx >= bw) return;
+  const int by = blockIdx.y;
+  const int f = blockIdx.z;
+  const size_t off = (static_cast<size_t>(f) * h + static_cast<size_t>(by) * 8) * w +
+                     static_cast<size_t>(bx) * 8;
+
+  uint2 raw[8];
+  load_rows(frames + off, w, raw);
+  float x[8][8];
+  unpack_rows(raw, x);
+  float y[RN][8];
+  forward_rows<RN>(x, m, y);
+
+  // packed row jg*rows_pad + i*RN + g of the frame, byte column bx
+  const int jg = by / stripe_blocks;
+  const int i = by - jg * stripe_blocks;
+  const size_t frame_rows = static_cast<size_t>(h / 8 / stripe_blocks) * rows_pad;
+  uint8_t* group = packed + (static_cast<size_t>(f) * frame_rows +
+                             static_cast<size_t>(jg) * rows_pad) * bw + bx;
+#pragma unroll
+  for (int g = 0; g < RN; ++g) {
+    uint32_t byte = 0;
+    if (delta > 0.0f) {  // delta <= 0 reads all-zero bits
+#pragma unroll
+      for (int v = 0; v < 8; ++v)
+        byte |= static_cast<uint32_t>(parity(rintf(y[g][v] / delta))) << v;
+    }
+    group[static_cast<size_t>(i * RN + g) * bw] = static_cast<uint8_t>(byte);
+  }
+  // the last block row of a stripe zeroes the stripe's padding rows
+  if (i == stripe_blocks - 1)
+    for (int k = stripe_blocks * RN; k < rows_pad; ++k)
+      group[static_cast<size_t>(k) * bw] = 0;
+}
+
+}  // namespace
+
+#define STEGOTPU_RN_SWITCH(rn, LAUNCH) \
+  switch (rn) {                        \
+    case 1: LAUNCH(1); break;          \
+    case 2: LAUNCH(2); break;          \
+    case 3: LAUNCH(3); break;          \
+    case 4: LAUNCH(4); break;          \
+    case 5: LAUNCH(5); break;          \
+    case 6: LAUNCH(6); break;          \
+    case 7: LAUNCH(7); break;          \
+    case 8: LAUNCH(8); break;          \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+extern "C" {
+
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8, cap = (H/8)(W/8)num_ac;
+// dct: the 8x8 DCT-II matrix, 64 f32 on the device. Returns a cudaError_t.
+int stegotpu_qim_embed(const void* frames, const void* payload, void* stego,
+                       const void* dct, int device, int b, int h, int w,
+                       int num_ac, long long total_bits, long long bit_offset,
+                       float delta, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  (void)cudaGetLastError();  // clear a stale error of an earlier call
+  const int bw = w / 8;
+  const long long cap = static_cast<long long>(h / 8) * bw * num_ac;
+  const dim3 grid((bw + kThreads - 1) / kThreads, h / 8, b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STEGOTPU_EMBED(RN)                                                  \
+  qim_embed_kernel<RN><<<grid, kThreads, 0, s>>>(                           \
+      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
+      static_cast<uint8_t*>(stego), static_cast<const float*>(dct), h, w,   \
+      num_ac, cap, total_bits, bit_offset, delta)
+  STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_EMBED)
+#undef STEGOTPU_EMBED
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frames: (B, H, W) u8; packed: (B, (H/stripe)*rows_pad, W/8) u8.
+int stegotpu_qim_extract_packed(const void* frames, void* packed, const void* dct,
+                                int device, int b, int h, int w, int num_ac,
+                                int stripe, int rows_pad, float delta,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  (void)cudaGetLastError();
+  const int bw = w / 8;
+  const dim3 grid((bw + kThreads - 1) / kThreads, h / 8, b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STEGOTPU_EXTRACT(RN)                                                \
+  qim_extract_packed_kernel<RN><<<grid, kThreads, 0, s>>>(                  \
+      static_cast<const uint8_t*>(frames), static_cast<uint8_t*>(packed),   \
+      static_cast<const float*>(dct), h, w, stripe / 8, rows_pad, delta)
+  STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_EXTRACT)
+#undef STEGOTPU_EXTRACT
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* stegotpu_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -6,15 +6,28 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the two CUDA stripe kernels from stegotpu_torch/csrc, checks
-each against its plain PyTorch version on the card, drives the port's
-default embed -> extract round trip at 1920x1080 through the pipeline's
-entry points, times the kernels and their plain versions with CUDA
-events, and — where cryptography, Pillow and a video backend are
-installed — runs the file-to-file embed and extract. Every phase prints
-one line; any failure exits non-zero. The line before the last is a JSON
-object with each kernel's route, source, launches on the main path, error
-and times; the last line is {"ok": true, "device": {...}}.
+It builds the five CUDA stripe kernels from stegotpu_torch/csrc and runs
+nine phases:
+
+1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
+     versions at 1920x1080 and 1360x768;
+3.   the port's default embed -> extract round trip at 1920x1080 through
+     the pipeline's entry points (the path of K1 and K2);
+4.   every kernel's time and its plain version's, with CUDA events;
+5.   the file-to-file embed and extract, where cryptography, Pillow and a
+     video backend are installed;
+6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
+     against their plain versions;
+7.   the zero-tolerance identities kernel against kernel, then the
+     exactness harness (ops/exactness.py, the path of K4 and K5);
+8.   the TF32 sentinel: a row fails with TF32 in the oracle, and passes
+     without;
+9.   the verified embed at full width (the path of K3), on arrays and file
+     to file.
+
+Every phase prints; any failure exits non-zero. The line before the last
+is a JSON object with each kernel's route, source, launches on its path,
+error and times; the last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
@@ -67,20 +80,30 @@ def _gpu_line() -> str:
 
 
 def _ptxas_summary(log: str) -> str:
-    """'embed<2>:128r/0s ...' from nvcc's -Xptxas=-v report."""
-    out, name, spill = [], None, "?"
+    """Registers and spill-store bytes of every kernel from nvcc's
+    -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...', the
+    instantiation of the default num_ac=10 (rn=2) and the largest over
+    rn=1..8."""
+    per: dict[str, dict[int, tuple[int, int]]] = {}
+    name, rn, spill = None, 0, 0
     for line in log.splitlines():
-        m = re.search(r"qim_(embed|extract_packed)_kernelILi(\d)E", line)
+        m = re.search(r"\dqim_([a-z_]+)_kernelILi(\d)E", line)
         if m and "Compiling entry" in line:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name, rn, spill = m.group(1), int(m.group(2)), 0
         m2 = re.search(r"(\d+) bytes spill stores", line)
         if m2 and name:
-            spill = m2.group(1)
+            spill = int(m2.group(1))
         m3 = re.search(r"Used (\d+) registers", line)
         if m3 and name:
-            out.append(f"{name}:{m3.group(1)}r/{spill}s")
+            per.setdefault(name, {})[rn] = (int(m3.group(1)), spill)
             name = None
-    return " ".join(sorted(out))
+    out = []
+    for kernel, by_rn in sorted(per.items()):
+        r2, s2 = by_rn.get(2, (-1, -1))
+        out.append(f"{kernel}<2>:{r2}r/{s2}s(max "
+                   f"{max(r for r, _ in by_rn.values())}r/"
+                   f"{max(s for _, s in by_rn.values())}s)")
+    return " ".join(out)
 
 
 def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -102,9 +125,24 @@ def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _near_boundary(frames, delta: float, num_ac: int):
-    """Per wire-order slot bit: True where the float64 coefficient lies
-    within the exactness envelope of a rounding boundary."""
+COUNTERS = ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
+            "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES")
+
+
+def _counts(sk) -> dict[str, int]:
+    return {c: getattr(sk, c) for c in COUNTERS}
+
+
+def _set_counts(sk, counts: dict[str, int] | None = None) -> None:
+    """Set every launch counter (to 0 without `counts`)."""
+    for c in COUNTERS:
+        setattr(sk, c, 0 if counts is None else counts[c])
+
+
+def _near_boundary_t(frames, delta: float, num_ac: int):
+    """Per wire-order slot bit, a (B, C) bool tensor on the frames' device:
+    True where the float64 coefficient lies within the exactness envelope
+    of a rounding boundary."""
     import torch
 
     from stegotpu_torch.ops.dct import blockify, kron_dct_tensor
@@ -113,8 +151,12 @@ def _near_boundary(frames, delta: float, num_ac: int):
     y = blockify(frames.to(torch.float64)) @ k.T      # (B, nb, num_ac)
     r = y / delta
     dist = (r - torch.floor(r) - 0.5).abs() * delta
-    near = dist <= TOL_ABS + TOL_REL * y.abs()
-    return near.reshape(frames.shape[0], -1).cpu().numpy()
+    return (dist <= TOL_ABS + TOL_REL * y.abs()).reshape(frames.shape[0], -1)
+
+
+def _near_boundary(frames, delta: float, num_ac: int):
+    """_near_boundary_t on the host, as a numpy array."""
+    return _near_boundary_t(frames, delta, num_ac).cpu().numpy()
 
 
 def main() -> int:
@@ -242,26 +284,28 @@ def main() -> int:
     bits = payload_mod.build_payload_bits(parts)
     cover = rng.integers(16, 240, (24, 1080, 1920), dtype=np.uint8)
     cfg = StegoConfig()
-    sk.EMBED_LAUNCHES = sk.EXTRACT_LAUNCHES = 0
+    _set_counts(sk)
     t0 = time.perf_counter()
     stego, bpf = embed_payload_into_gray_frames(cover, bits, cfg, device=dev)
     out = extract_bits_from_gray_frames(stego, cfg, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"embed": sk.EMBED_LAUNCHES, "extract": sk.EXTRACT_LAUNCHES}
+    launches = {"embed": sk.EMBED_LAUNCHES,
+                "extract_packed": sk.EXTRACT_LAUNCHES}
     check(int(bpf.sum()) == bits.size, "main path: not every bit embedded")
     got, _consumed = payload_mod.parse_payload_bits(out, cfg.dims_bits)
     check(got == parts, "main path: payload did not round-trip")
     tail = np.flatnonzero(bpf == 0)
     check(tail.size > 0 and np.array_equal(stego[tail], cover[tail]),
           "main path: frames past the payload differ from the cover")
-    check(launches["embed"] > 0 and launches["extract"] > 0,
+    check(launches["embed"] > 0 and launches["extract_packed"] > 0,
           f"main path did not launch both kernels: {launches}")
     print(f"phase 3 main path 1080p: {bits.size} payload bits over "
           f"{int((bpf > 0).sum())} of {len(cover)} frames round-trip exactly "
           f"(parse_payload_bits); frames {tail[0]}..{tail[-1]} byte-identical "
           f"to the cover; EMBED_LAUNCHES={launches['embed']} "
-          f"EXTRACT_LAUNCHES={launches['extract']}; {seconds:.2f} s host clock",
+          f"EXTRACT_LAUNCHES={launches['extract_packed']}; {seconds:.2f} s "
+          "host clock",
           flush=True)
     del stego, out
 
@@ -273,18 +317,28 @@ def main() -> int:
     payload = torch.from_numpy(
         rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
     total = b * cap
-    counts = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES)
+    counts = _counts(sk)
+    args = (frames, payload, total, DELTA, NUM_AC)
     times = {
-        "embed": _time_ms(lambda: sk.embed_frames(
-            frames, payload, total, DELTA, NUM_AC)),
-        "embed_plain": _time_ms(lambda: sk.embed_frames_plain(
-            frames, payload, total, DELTA, NUM_AC)),
-        "extract": _time_ms(lambda: sk.extract_frames_packed(
+        "embed": _time_ms(lambda: sk.embed_frames(*args)),
+        "embed_plain": _time_ms(lambda: sk.embed_frames_plain(*args)),
+        "extract_packed": _time_ms(lambda: sk.extract_frames_packed(
             frames, DELTA, NUM_AC)),
-        "extract_plain": _time_ms(lambda: sk.extract_frames_packed_plain(
+        "extract_packed_plain": _time_ms(
+            lambda: sk.extract_frames_packed_plain(frames, DELTA, NUM_AC)),
+        "embed_check": _time_ms(lambda: sk.embed_and_check_frames(*args)),
+        "embed_check_plain": _time_ms(
+            lambda: sk.embed_and_check_frames_plain(*args)),
+        "roundtrip_packed": _time_ms(
+            lambda: sk.embed_and_extract_frames_packed(*args)),
+        "roundtrip_packed_plain": _time_ms(
+            lambda: sk.embed_and_extract_frames_packed_plain(*args)),
+        "extract_rows": _time_ms(lambda: sk.extract_frames_rows(
+            frames, DELTA, NUM_AC)),
+        "extract_rows_plain": _time_ms(lambda: sk.extract_frames_rows_plain(
             frames, DELTA, NUM_AC)),
     }
-    sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES = counts  # timing is not the main path
+    _set_counts(sk, counts)  # timing is not a path's run
     print(f"phase 4 times 1920x1080 B=8 (median of 20 CUDA-event runs, {gpu}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
 
@@ -295,26 +349,32 @@ def main() -> int:
 
     backend = "native" if _use_native("auto") else (
         "cv2" if libs["cv2"] else None)
-    if all(libs.values()) and backend:
+    files = all(libs.values()) and backend is not None
+    if files:
         print(f"phase 5 file-to-file: runs (video backend {backend})",
               flush=True)
-        _file_to_file(dev, rng)
+        _file_to_file(dev, rng, "phase 5 file-to-file 1080p",
+                      (rng.integers(16, 240, (6, 1080, 1920, 3), dtype=np.uint8)
+                       for _ in range(4)), (480, 640), StegoConfig())
     else:
         print(f"phase 5 file-to-file: skipped, missing {libs} video backend "
               f"{backend}", flush=True)
 
+    errs = _fused_vs_plain(dev, rng)                          # phase 6
+    launches.update(_identities_and_harness(dev, rng, libs["cv2"]))  # phase 7
+    _tf32_sentinel(dev)                                       # phase 8
+    launches.update(_verified_path(dev, rng, files))          # phase 9
+
+    replaces = {"embed": 529, "extract_packed": 577, "embed_check": 906,
+                "roundtrip_packed": 804, "extract_rows": 545}
+    errs.update(embed=embed_err, extract_packed=extract_err)
     kernels = [
-        {"name": "embed", "route": "cuda",
+        {"name": k, "route": "cuda",
          "source": "stegotpu_torch/csrc/qim_stripe.cu",
-         "replaces": "stegotpu/ops/pallas_kernel.py:529",
-         "launches": launches["embed"], "max_abs_err": embed_err,
-         "ms": times["embed"], "plain_ms": times["embed_plain"]},
-        {"name": "extract_packed", "route": "cuda",
-         "source": "stegotpu_torch/csrc/qim_stripe.cu",
-         "replaces": "stegotpu/ops/pallas_kernel.py:577",
-         "launches": launches["extract"], "max_abs_err": extract_err,
-         "ms": times["extract"], "plain_ms": times["extract_plain"]},
-    ]
+         "replaces": f"stegotpu/ops/pallas_kernel.py:{line}",
+         "launches": launches[k], "max_abs_err": errs[k],
+         "ms": times[k], "plain_ms": times[f"{k}_plain"]}
+        for k, line in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -341,8 +401,12 @@ class _StageTimer:
         return " ".join(f"{k} {v:.3f} s" for k, v in sorted(self.totals.items()))
 
 
-def _file_to_file(dev, rng) -> None:
-    """embed_image_in_video -> extract_image_from_video at 1080p on `dev`."""
+def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
+                  cfg) -> dict[str, int]:
+    """embed_image_in_video(cfg) -> extract_image_from_video (standard
+    config) at 1080p on `dev`: the secret comes back pixel-identical with
+    SHA3 OK and no residual. cover_batches: (n, 1080, 1920, 3) u8 BGR
+    batches, written losslessly (FFV1). Returns the run's launch counts."""
     import numpy as np
 
     from stegotpu_torch import crypto
@@ -355,16 +419,14 @@ def _file_to_file(dev, rng) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        secret = rng.integers(0, 256, (480, 640), dtype=np.uint8)
+        secret = rng.integers(0, 256, secret_hw, dtype=np.uint8)
         save_image_gray(secret, tmp / "secret.png")
         with VideoWriter(tmp / "cover.avi", 30.0, 1920, 1080) as writer:
-            for _ in range(4):
-                writer.write_bgr_batch(rng.integers(
-                    16, 240, (6, 1080, 1920, 3), dtype=np.uint8))
+            for batch in cover_batches:
+                writer.write_bgr_batch(batch)
         priv, pub = crypto.generate_keypair(rng)
         crypto.save_keypair_pem(priv, tmp / "priv.pem", tmp / "pub.pem")
-        cfg = StegoConfig()
-        sk.EMBED_LAUNCHES = sk.EXTRACT_LAUNCHES = 0
+        _set_counts(sk)
         embed_stages, extract_stages = _StageTimer(), _StageTimer()
         t0 = time.perf_counter()
         res = embed_image_in_video(
@@ -372,20 +434,303 @@ def _file_to_file(dev, rng) -> None:
             crypto.serialize_public_compressed(pub), cfg, batch_frames=8,
             timer=embed_stages, device=dev)
         t1 = time.perf_counter()
-        check(res.success, f"file embed failed: {res.error}")
+        check(res.success and res.residual_bits == 0,
+              f"file embed failed: {res.error}")
         out = extract_image_from_video(
-            tmp / "stego.avi", crypto.load_private_pem(tmp / "priv.pem"), cfg,
-            tmp / "extracted.png", batch_frames=8, timer=extract_stages,
-            device=dev)
+            tmp / "stego.avi", crypto.load_private_pem(tmp / "priv.pem"),
+            StegoConfig(), tmp / "extracted.png", batch_frames=8,
+            timer=extract_stages, device=dev)
         t2 = time.perf_counter()
+        counts = _counts(sk)
         check(out.success and out.hash_ok, f"file extract failed: {out.error}")
         check(np.array_equal(out.pixels, secret),
               "file extract: secret not pixel-identical")
-        print(f"phase 5 file-to-file 1080p: {res.total_payload_bits} bits in "
-              f"{res.frames_used} frames, secret 640x480 pixel-identical, "
-              f"SHA3 ok; host clock: embed {t1 - t0:.3f} s ({embed_stages}), "
-              f"extract {t2 - t1:.3f} s ({extract_stages}); launches embed "
-              f"{sk.EMBED_LAUNCHES} extract {sk.EXTRACT_LAUNCHES}", flush=True)
+        print(f"{label}: {res.total_payload_bits} bits in {res.frames_used} "
+              f"frames, residual {res.residual_bits}, secret "
+              f"{secret_hw[1]}x{secret_hw[0]} pixel-identical, SHA3 ok; host "
+              f"clock: embed {t1 - t0:.3f} s ({embed_stages}), extract "
+              f"{t2 - t1:.3f} s ({extract_stages}); launches "
+              + " ".join(f"{k}={v}" for k, v in counts.items() if v),
+              flush=True)
+    return counts
+
+
+def _covers(dev, rng, b: int, h: int, w: int, cover: str):
+    """(frames, payload, total) at the phase shapes: a mid-range (16..239)
+    or full-range (0..255) uniform cover and a payload ending mid-block,
+    with no bit offset (K3 and K4 take none)."""
+    import numpy as np
+    import torch
+
+    lo, hi = (16, 240) if cover == "mid" else (0, 256)
+    frames = torch.from_numpy(rng.integers(lo, hi, (b, h, w), dtype=np.uint8))
+    cap = (h // 8) * (w // 8) * NUM_AC
+    payload = torch.from_numpy(rng.integers(0, 2, (b, cap), dtype=np.uint8))
+    return frames.to(dev), payload.to(dev), b * cap - 13
+
+
+def _wire(sk, packed, h: int):
+    return sk.packed_rows_to_bits(packed, h, packed.shape[-1] * 8, NUM_AC,
+                                  sk.pick_stripe(h))
+
+
+def _fused_vs_plain(dev, rng) -> dict[str, int]:
+    """Phase 6: K3, K4 and K5 against their plain versions at the main
+    path's shapes. Returns each kernel's max_abs_err: the largest stego
+    pixel difference for K3 and K4, and 1 if any K5 bit differed outside
+    the envelope (the run fails then)."""
+    import torch
+
+    from stegotpu_torch.ops import stripe_kernel as sk
+
+    errs = {"embed_check": 0, "roundtrip_packed": 0, "extract_rows": 0}
+    for (h, w) in ((1080, 1920), (768, 1360)):
+        for cover in ("mid", "uniform"):
+            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            args = (frames, payload, total, DELTA, NUM_AC)
+            s3, bpf3, err3 = sk.embed_and_check_frames(*args)
+            s3p, bpf3p, _ = sk.embed_and_check_frames_plain(*args)
+            s4, bpf4, p4 = sk.embed_and_extract_frames_packed(*args)
+            s4p, bpf4p, _ = sk.embed_and_extract_frames_packed_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(bpf3, bpf3p) and torch.equal(bpf4, bpf4p),
+                  f"K3/K4 bits_per_frame differ from plain at {h}x{w}")
+            flips = []
+            for key, s_k, s_p in (("embed_check", s3, s3p),
+                                  ("roundtrip_packed", s4, s4p)):
+                d = (s_k.to(torch.int32) - s_p.to(torch.int32)).abs()
+                flips.append((d > 1).double().mean().item())
+                errs[key] = max(errs[key], int(d.max().item()))
+                check(flips[-1] < STEGO_FLIP_BUDGET,
+                      f"{key} vs plain: {flips[-1]:.4%} of pixels differ by "
+                      f">1 at {h}x{w}")
+            # K4's bits against the plain extract of K4's own stego
+            near4 = _near_boundary_t(s4, DELTA, NUM_AC)
+            out4 = int(((_wire(sk, p4, h) != _wire(
+                sk, sk.extract_frames_packed_plain(s4, DELTA, NUM_AC), h))
+                & ~near4).sum())
+            check(out4 == 0, f"K4 vs plain: {out4} bits outside the envelope "
+                  f"at {h}x{w} ({cover})")
+            # K3's count against the plain extract of K3's own stego; the two
+            # f32 reads may differ only on valid slots inside the envelope
+            count_p = sk.count_wrong_bits(_wire(
+                sk, sk.extract_frames_packed_plain(s3, DELTA, NUM_AC), h),
+                payload, total)
+            valid = torch.arange(payload.numel(), device=dev).reshape(
+                payload.shape) < total
+            slack = (_near_boundary_t(s3, DELTA, NUM_AC) & valid).sum(1)
+            check(bool(((err3 - count_p).abs() <= slack).all()),
+                  f"K3 count {err3.tolist()} vs plain {count_p.tolist()} "
+                  f"beyond the envelope slack {slack.tolist()} at {h}x{w}")
+            check(cover != "mid" or not err3.any(),
+                  f"K3 counted wrong bits on a mid-range cover at {h}x{w}")
+            # K5 on the cover and on K4's stego against its plain version
+            stripe = sk.pick_stripe(h)
+            out5 = 0
+            for x in (frames, s4):
+                r5 = sk.extract_frames_rows(x, DELTA, NUM_AC)
+                r5p = sk.extract_frames_rows_plain(x, DELTA, NUM_AC)
+                rp = sk._rows_pad(stripe, sk.rows_per_block(NUM_AC))
+                pad = torch.arange(r5.shape[1], device=dev) % rp >= \
+                    (stripe // 8) * sk.rows_per_block(NUM_AC)
+                check(not r5[:, pad].any().item(), "K5 padding rows not zero")
+                out5 += int(((sk.rows_to_bits(r5, h, w, NUM_AC, stripe)
+                              != sk.rows_to_bits(r5p, h, w, NUM_AC, stripe))
+                             & ~_near_boundary_t(x, DELTA, NUM_AC)).sum())
+            errs["extract_rows"] = max(errs["extract_rows"], int(out5 > 0))
+            check(out5 == 0, f"K5 vs plain: {out5} bits outside the envelope "
+                  f"at {h}x{w} ({cover})")
+            print(f"phase 6 K3/K4/K5 {h}x{w} B=8 {cover}: bpf identical; >1 px "
+                  f"K3 {flips[0]:.5%} K4 {flips[1]:.5%}; K3 count "
+                  f"{int(err3.sum())} vs plain extract of its stego "
+                  f"{int(count_p.sum())} (envelope slack {int(slack.sum())}); "
+                  "K4 and K5 bits within the envelope; K5 padding rows zero",
+                  flush=True)
+    return errs
+
+
+def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
+    """Phase 7: the zero-tolerance identities kernel against kernel, then
+    the exactness harness (ops/exactness.py), the path that runs K4 and K5.
+    Returns the K4 and K5 launches of the harness's run."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import exactness
+    from stegotpu_torch.ops import stripe_kernel as sk
+
+    spread = torch.arange(8, dtype=torch.uint8, device=dev)
+    for (h, w) in ((1080, 1920), (768, 1360)):
+        for cover in ("mid", "uniform"):
+            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            args = (frames, payload, total, DELTA, NUM_AC)
+            s1, _ = sk.embed_frames(*args)
+            s3, _, err3 = sk.embed_and_check_frames(*args)
+            s4, _, p4 = sk.embed_and_extract_frames_packed(*args)
+            check(torch.equal(s3, s1), f"K3 stego != K1 stego at {h}x{w}")
+            check(torch.equal(s4, s1), f"K4 stego != K1 stego at {h}x{w}")
+            check(torch.equal(p4, sk.extract_frames_packed(s4, DELTA, NUM_AC)),
+                  f"K4 bits != K2 of K4's stego at {h}x{w}")
+            for x in (frames, s1):
+                r5 = sk.extract_frames_rows(x, DELTA, NUM_AC)
+                p2 = sk.extract_frames_packed(x, DELTA, NUM_AC)
+                check(torch.equal(r5, ((p2[..., None] >> spread) & 1)
+                                  .reshape(r5.shape)),
+                      f"K5 lanes != K2 bytes at {h}x{w}")
+            count = sk.count_wrong_bits(sk.extract_frames(s3, DELTA, NUM_AC),
+                                        payload, total)
+            check(torch.equal(err3, count),
+                  f"K3 count {err3.tolist()} != K2 count {count.tolist()}")
+            print(f"phase 7 identities {h}x{w} B=8 {cover}: K3 stego == K4 "
+                  "stego == K1 stego; K4 bits == K2(K4 stego) byte for byte; "
+                  "K5 == K2 lane for lane; K3 count == K2 count "
+                  f"({int(count.sum())})", flush=True)
+
+    _set_counts(sk)
+    rows = [exactness.quick_exactness_check(device=dev)]
+    for content in ("noise", "compressed") if with_cv2 else ("noise",):
+        rows += exactness.check_config(4, 1080, 1920, 10, [DELTA],
+                                       np.random.default_rng(42),
+                                       verbose=False, content=content,
+                                       device=dev)
+    launches = {"roundtrip_packed": sk.ROUNDTRIP_LAUNCHES,
+                "extract_rows": sk.EXTRACT_ROWS_LAUNCHES}
+    for row in rows:
+        check(exactness.row_ok(row), f"exactness row failed: {row}")
+        print(f"phase 7 exactness {row['w']}x{row['h']} B={row['batch']} "
+              f"delta {row['delta']} {row['content']}: row_ok; "
+              + " ".join(f"{k}={row[k]}" for k in exactness.EXACT_KEYS)
+              + f" roundtrip_errors {row['roundtrip_errors_pallas']}/"
+              f"{row['roundtrip_errors_xla']} cover boundary flips "
+              f"{row['extract_mismatch_cover']}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"the exactness harness did not launch K4 and K5: {launches}")
+    print(f"phase 7 harness launches: ROUNDTRIP_LAUNCHES="
+          f"{launches['roundtrip_packed']} EXTRACT_ROWS_LAUNCHES="
+          f"{launches['extract_rows']}", flush=True)
+    return launches
+
+
+def _tf32_sentinel(dev) -> None:
+    """Phase 8: with TF32 allowed around the oracle only, the 1080p noise
+    row must fail row_ok; with the flag restored, the same row must pass."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import exactness, qim
+
+    def under_tf32(fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return call
+
+    def row():
+        return exactness.check_config(4, 1080, 1920, 10, [DELTA],
+                                      np.random.default_rng(42),
+                                      verbose=False, device=dev)[0]
+
+    oracle = (qim.embed_frames, qim.extract_frames)
+    qim.embed_frames, qim.extract_frames = map(under_tf32, oracle)
+    try:
+        bad = row()
+    finally:
+        qim.embed_frames, qim.extract_frames = oracle
+    good = row()
+    check(not exactness.row_ok(bad),
+          f"TF32 sentinel: the row passed with a TF32 oracle: {bad}")
+    check(exactness.row_ok(good), f"TF32 sentinel: the restored row failed: "
+          f"{good}")
+    keys = ("extract_mismatch_cover_nonboundary",
+            "extract_mismatch_stego_nonboundary", "roundtrip_errors_xla")
+    print("phase 8 TF32 sentinel 1920x1080 B=4 noise delta 20: TF32 oracle "
+          "fails row_ok (" + " ".join(f"{k}={bad[k]}" for k in keys)
+          + "); restored it passes (" + " ".join(f"{k}={good[k]}" for k in keys)
+          + f"); allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+
+
+def _letterboxed(rng, b: int, bar: int = 136):
+    """(b, 1080, 1920) u8: black bars of `bar` rows above and below a
+    picture of luma 60..195 (136 rows = 17 block rows: no block straddles
+    the edge)."""
+    import numpy as np
+
+    frames = np.zeros((b, 1080, 1920), np.uint8)
+    frames[:, bar:-bar] = rng.integers(60, 196, (b, 1080 - 2 * bar, 1920),
+                                       dtype=np.uint8)
+    return frames
+
+
+def _verified_path(dev, rng, files: bool) -> dict[str, int]:
+    """Phase 9: the verified embed at full width, array level and (where
+    the host libraries are installed) file to file. Returns K3's launches
+    on that path."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.ops.verified import embed_frames_verified_fast
+
+    b, h, w = 8, 1080, 1920
+    cap = (h // 8) * (w // 8) * NUM_AC
+    payload = torch.from_numpy(
+        rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+    total = b * cap
+    mid = torch.from_numpy(
+        rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
+    boxed = torch.from_numpy(_letterboxed(rng, b)).to(dev)
+    plain, _ = sk.embed_frames(boxed, payload, total, DELTA, NUM_AC)
+    lost = int((sk.extract_frames(plain, DELTA, NUM_AC) != payload).sum())
+    check(lost > 0, "test premise: the plain embed must lose bits on the "
+          "letterboxed cover")
+
+    _set_counts(sk)
+    t0 = time.perf_counter()
+    s_mid, bpf_mid, r_mid = embed_frames_verified_fast(mid, payload, total,
+                                                       DELTA, NUM_AC)
+    after_mid = sk.CHECK_LAUNCHES
+    s_box, bpf_box, r_box = embed_frames_verified_fast(boxed, payload, total,
+                                                       DELTA, NUM_AC)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"embed_check": sk.CHECK_LAUNCHES}
+    check(after_mid == 1 and int(r_mid) == 0
+          and torch.equal(bpf_mid, bpf_box),
+          f"verified fast branch: launches {after_mid}, residual {int(r_mid)}")
+    check(torch.equal(s_mid, sk.embed_frames(mid, payload, total, DELTA,
+                                             NUM_AC)[0]),
+          "verified fast branch: stego is not K3's (== K1's)")
+    check(torch.equal(sk.extract_frames(s_mid, DELTA, NUM_AC), payload),
+          "verified fast branch: payload not recovered")
+    check(int(r_box) == 0, f"verified repair: residual {int(r_box)}")
+    check(not torch.equal(s_box, plain), "verified repair branch did not run")
+    check(torch.equal(sk.extract_frames(s_box, DELTA, NUM_AC), payload),
+          "verified repair: K2 does not recover the payload")
+    print(f"phase 9 verified 1920x1080 B=8: mid cover fast branch residual 0, "
+          f"stego == K1's, payload exact; letterboxed cover (bars 136 rows): "
+          f"plain K1 embed loses {lost} bits, repair branch residual 0, K2 "
+          f"recovers all {total} bits; CHECK_LAUNCHES={launches['embed_check']}"
+          f"; {seconds:.3f} s host clock", flush=True)
+    if files:
+        from stegotpu_torch.config import StegoConfig
+
+        n = _file_to_file(
+            dev, rng, "phase 9 verified file-to-file 1080p letterboxed",
+            [np.repeat(_letterboxed(rng, 6)[..., None], 3, axis=-1)],
+            (240, 320), StegoConfig(verified_embed=True))["CHECK_LAUNCHES"]
+        check(n > 0, "the verified file embed did not launch K3")
+        launches["embed_check"] += n
+    else:
+        print("phase 9 verified file-to-file: skipped (host libraries)",
+              flush=True)
+    return launches
 
 
 if __name__ == "__main__":

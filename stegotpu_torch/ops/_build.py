@@ -84,6 +84,15 @@ def load_library() -> ctypes.CDLL:
         lib.stegotpu_qim_extract_packed.argtypes = [p, p, p, i, i, i, i, i,
                                                     i, i, f, p]
         lib.stegotpu_qim_extract_packed.restype = i
+        lib.stegotpu_qim_extract_rows.argtypes = [p, p, p, i, i, i, i, i,
+                                                  i, i, f, p]
+        lib.stegotpu_qim_extract_rows.restype = i
+        lib.stegotpu_qim_roundtrip_packed.argtypes = [p, p, p, p, p, i, i, i,
+                                                      i, i, i64, i, i, f, p]
+        lib.stegotpu_qim_roundtrip_packed.restype = i
+        lib.stegotpu_qim_embed_check.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                 i, i64, f, p]
+        lib.stegotpu_qim_embed_check.restype = i
         lib.stegotpu_cuda_error_string.argtypes = [i]
         lib.stegotpu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,17 +1,26 @@
-"""The QIM/DCT stripe kernels of the default embed/extract path.
+"""The QIM/DCT stripe kernels: embed, extract, and their fused forms.
 
-Counterpart of ``stegotpu/ops/pallas_kernel.py``. Two kernels, each a
+Counterpart of ``stegotpu/ops/pallas_kernel.py``. Five kernels, each a
 hand-written CUDA C++ kernel for Hopper (csrc/qim_stripe.cu, built and
 bound by ops/_build.py) with its plain PyTorch version beside it:
 
 - K1 ``embed_frames`` replaces ``_embed_kernel`` (pallas_kernel.py:529);
   plain version ``embed_frames_plain``;
 - K2 ``extract_frames_packed`` replaces ``_extract_kernel_packed``
-  (pallas_kernel.py:577); plain version ``extract_frames_packed_plain``.
+  (pallas_kernel.py:577); plain version ``extract_frames_packed_plain``;
+- K3 ``embed_and_check_frames`` replaces ``_embed_check_kernel``
+  (pallas_kernel.py:906), the verified embed's fast path; plain version
+  ``embed_and_check_frames_plain``;
+- K4 ``embed_and_extract_frames_packed`` replaces
+  ``_roundtrip_kernel_packed`` (pallas_kernel.py:804); plain version
+  ``embed_and_extract_frames_packed_plain``;
+- K5 ``extract_frames_rows`` replaces ``_extract_kernel``
+  (pallas_kernel.py:545); plain version ``extract_frames_rows_plain``.
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
-no fallback. ``EMBED_LAUNCHES`` / ``EXTRACT_LAUNCHES`` count the kernel
+no fallback. ``EMBED_LAUNCHES``, ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``,
+``ROUNDTRIP_LAUNCHES`` and ``EXTRACT_ROWS_LAUNCHES`` count the kernel
 launches (and nothing else), so a run can show that it went through them.
 
 The plain versions compute the same sparse-delta form in f32: blockify,
@@ -19,14 +28,20 @@ The plain versions compute the same sparse-delta form in f32: blockify,
 delta on valid slots, then ``x + dy @ K[slots]``. Semantics are those of
 ``stegotpu/ops/qim.py:9-25``: row-major AC slots 1..num_ac,
 round-half-even, directional parity, lattice snap, mid-block stop,
-passthrough of blocks never entered, truncating u8 cast.
+passthrough of blocks never entered, truncating u8 cast. The fused plain
+versions are K1's and K2's plain versions run one after the other, so
+they hold the same identities as the kernels: K3's and K4's stego is K1's,
+K4's bits and K3's count are K2's reading of that stego.
 
-K2 keeps the TPU kernel's packed compact-rows output layout as its
+K2 and K4 keep the TPU kernels' packed compact-rows output layout as their
 interface, (B, (H/stripe)*rows_pad, W/8) u8: byte (f, jg*rp + i*rn + g, bx)
 holds sum_s bit(8g+s) << s of block (jg*stripe/8 + i, bx), and the
-sublane-pad rows are 0. So ``packed_rows_to_bits_host`` and the
-pipeline's ``_PackedBitBuf`` carry over unchanged; the layout helpers
-below mirror pallas_kernel.py:75-134 and :243-281 exactly.
+sublane-pad rows are 0. K5 writes the same rows unpacked, (B,
+(H/stripe)*rows_pad, W) u8 with bit s of that byte in lane 8*bx + s. So
+``packed_rows_to_bits_host`` and the pipeline's ``_PackedBitBuf`` carry
+over unchanged; the layout helpers below mirror pallas_kernel.py:75-134 and
+:198-281 exactly. K3 and K4 have no bit offset: global bit 0 is the
+payload's first bit, as in the TPU kernels.
 """
 
 from __future__ import annotations
@@ -40,6 +55,9 @@ from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 
 EMBED_LAUNCHES = 0
 EXTRACT_LAUNCHES = 0
+CHECK_LAUNCHES = 0
+ROUNDTRIP_LAUNCHES = 0
+EXTRACT_ROWS_LAUNCHES = 0
 
 
 # --- layout helpers (numpy/int, mirrors of pallas_kernel.py) -----------------
@@ -116,22 +134,48 @@ def packed_rows_to_bits_host(packed: np.ndarray, h: int, w: int, num_ac: int,
     return np.concatenate(parts, axis=-1).reshape(b, -1)
 
 
+def _slot_lanes_to_bits(r: torch.Tensor, num_ac: int) -> torch.Tensor:
+    """(B, bh, rn, bw, 8) per-lane bits -> (B, C) wire order."""
+    rn = rows_per_block(num_ac)
+    parts = [r[:, :, g, :, s0:s1]
+             for g, (s0, s1) in ((g, _slot_span(g, num_ac)) for g in range(rn))]
+    return torch.cat(parts, dim=-1).reshape(r.shape[0], -1)
+
+
 def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
                         stripe: int) -> torch.Tensor:
     """packed_rows_to_bits_host on the tensor's own device: full frames of
     packed rows -> (B, C) wire-order bits."""
     b = packed.shape[0]
-    bw = w // BLOCK
     rn = rows_per_block(num_ac)
-    bh_s = stripe // BLOCK
     rp = _rows_pad(stripe, rn)
-    r = packed.reshape(b, h // stripe, rp, bw)[:, :, : bh_s * rn]
-    r = r.reshape(b, h // BLOCK, rn, bw, 1)
+    r = packed.reshape(b, h // stripe, rp, w // BLOCK)[:, :, : (stripe // BLOCK) * rn]
+    r = r.reshape(b, h // BLOCK, rn, w // BLOCK, 1)
     shifts = torch.arange(BLOCK, dtype=torch.uint8, device=packed.device)
-    bits = (r >> shifts) & 1                  # (b, bh, rn, bw, 8)
-    parts = [bits[:, :, g, :, s0:s1]
-             for g, (s0, s1) in ((g, _slot_span(g, num_ac)) for g in range(rn))]
-    return torch.cat(parts, dim=-1).reshape(b, -1)
+    return _slot_lanes_to_bits((r >> shifts) & 1, num_ac)
+
+
+def rows_to_bits(rows: torch.Tensor, h: int, w: int, num_ac: int,
+                 stripe: int) -> torch.Tensor:
+    """Wire-order unpack of K5's unpacked compact rows -> (B, C), on the
+    tensor's own device (mirror of pallas_kernel.py:198-213)."""
+    b = rows.shape[0]
+    rn = rows_per_block(num_ac)
+    rp = _rows_pad(stripe, rn)
+    r = rows.reshape(b, h // stripe, rp, w)[:, :, : (stripe // BLOCK) * rn]
+    return _slot_lanes_to_bits(
+        r.reshape(b, h // BLOCK, rn, w // BLOCK, BLOCK), num_ac)
+
+
+def count_wrong_bits(extracted: torch.Tensor, payload_bits: torch.Tensor,
+                     total_bits: int) -> torch.Tensor:
+    """(B,) int32: per frame, the slots below global bit total_bits whose
+    extracted bit differs from the payload's ((B, C) wire order both)."""
+    b, cap = payload_bits.shape
+    idx = torch.arange(b * cap, dtype=torch.int64,
+                       device=payload_bits.device).reshape(b, cap)
+    wrong = (idx < int(total_bits)) & (extracted != payload_bits)
+    return wrong.sum(dim=1, dtype=torch.int32)
 
 
 # --- plain PyTorch versions ---------------------------------------------------
@@ -213,6 +257,40 @@ def extract_frames_packed_plain(frames: torch.Tensor, delta: float,
     return out.reshape(b, (h // stripe) * rp, bw)
 
 
+def extract_frames_rows_plain(frames: torch.Tensor, delta: float,
+                              num_ac: int) -> torch.Tensor:
+    """Plain PyTorch version of K5: K2's plain bytes spread one bit per
+    lane, same result layout as K5."""
+    b, _, w = frames.shape
+    packed = extract_frames_packed_plain(frames, delta, num_ac)
+    shifts = torch.arange(BLOCK, dtype=torch.uint8, device=frames.device)
+    return ((packed[..., None] >> shifts) & 1).reshape(b, packed.shape[1], w)
+
+
+def embed_and_extract_frames_packed_plain(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: K1's plain embed, then K2's plain
+    extract of its stego."""
+    stego, bpf = embed_frames_plain(frames, payload_bits, total_bits, delta,
+                                    num_ac)
+    return stego, bpf, extract_frames_packed_plain(stego, delta, num_ac)
+
+
+def embed_and_check_frames_plain(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: K4's plain version, then the count of
+    valid slots that read back wrong, per frame."""
+    _, h, w = frames.shape
+    stego, bpf, packed = embed_and_extract_frames_packed_plain(
+        frames, payload_bits, total_bits, delta, num_ac)
+    got = packed_rows_to_bits(packed, h, w, num_ac, pick_stripe(h))
+    return stego, bpf, count_wrong_bits(got, payload_bits, total_bits)
+
+
 # --- kernel wrappers ----------------------------------------------------------
 
 def _check_frames(frames: torch.Tensor) -> tuple[int, int, int]:
@@ -231,6 +309,22 @@ def _check_frames(frames: torch.Tensor) -> tuple[int, int, int]:
     return b, h, w
 
 
+def _check_payload(payload_bits: torch.Tensor, frames: torch.Tensor,
+                   num_ac: int) -> int:
+    """Validate (B, C) contiguous u8 payload bits on the frames' device;
+    returns C, the capacity of one frame."""
+    b, h, w = frames.shape
+    cap = (h // BLOCK) * (w // BLOCK) * num_ac
+    if (payload_bits.dtype != torch.uint8 or tuple(payload_bits.shape) != (b, cap)
+            or payload_bits.device != frames.device
+            or not payload_bits.is_contiguous()):
+        raise ValueError(
+            f"payload_bits must be contiguous ({b}, {cap}) uint8 on "
+            f"{frames.device}, got {tuple(payload_bits.shape)} "
+            f"{payload_bits.dtype} on {payload_bits.device}")
+    return cap
+
+
 _DCT_ON_DEVICE: dict[torch.device, torch.Tensor] = {}
 
 
@@ -244,8 +338,24 @@ def _dct_on(device: torch.device) -> torch.Tensor:
     return _DCT_ON_DEVICE[device]
 
 
+def _launch(entry: str, *args) -> None:
+    """Call a C entry point of the kernel library and raise on its CUDA
+    error (a refused launch never runs, and a later synchronize would not
+    report it)."""
+    lib = _build.load_library()
+    _build.check(lib, getattr(lib, entry)(*args), f"{entry} launch")
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _packed_shape(b: int, h: int, w: int, num_ac: int, lanes: int
+                  ) -> tuple[tuple[int, int, int], int, int]:
+    """((B, (H/stripe)*rows_pad, lanes) output shape, stripe, rows_pad)."""
+    stripe = pick_stripe(h)
+    rp = _rows_pad(stripe, rows_per_block(num_ac))
+    return (b, (h // stripe) * rp, lanes), stripe, rp
 
 
 def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
@@ -261,26 +371,17 @@ def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
     """
     global EMBED_LAUNCHES
     b, h, w = _check_frames(frames)
-    cap = (h // BLOCK) * (w // BLOCK) * num_ac
-    if (payload_bits.dtype != torch.uint8 or tuple(payload_bits.shape) != (b, cap)
-            or payload_bits.device != frames.device
-            or not payload_bits.is_contiguous()):
-        raise ValueError(
-            f"payload_bits must be contiguous ({b}, {cap}) uint8 on "
-            f"{frames.device}, got {tuple(payload_bits.shape)} "
-            f"{payload_bits.dtype} on {payload_bits.device}")
+    cap = _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
         return embed_frames_plain(frames, payload_bits, total_bits, delta,
                                   num_ac, bit_offset)
     stego = torch.empty_like(frames)
     if stego.numel():
-        lib = _build.load_library()
         dev = frames.device
-        rc = lib.stegotpu_qim_embed(
-            frames.data_ptr(), payload_bits.data_ptr(), stego.data_ptr(),
-            _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-            int(total_bits), int(bit_offset), float(delta), _stream(dev))
-        _build.check(lib, rc, "qim_embed launch")
+        _launch("stegotpu_qim_embed", frames.data_ptr(),
+                payload_bits.data_ptr(), stego.data_ptr(),
+                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                int(total_bits), int(bit_offset), float(delta), _stream(dev))
         EMBED_LAUNCHES += 1
     return stego, _bits_per_frame(b, cap, int(total_bits), int(bit_offset),
                                   frames.device)
@@ -296,17 +397,13 @@ def extract_frames_packed(frames: torch.Tensor, delta: float,
     b, h, w = _check_frames(frames)
     if frames.device.type == "cpu":
         return extract_frames_packed_plain(frames, delta, num_ac)
-    stripe = pick_stripe(h)
-    rp = _rows_pad(stripe, rows_per_block(num_ac))
-    packed = torch.empty((b, (h // stripe) * rp, w // BLOCK),
-                         dtype=torch.uint8, device=frames.device)
+    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK)
+    packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if packed.numel():
-        lib = _build.load_library()
         dev = frames.device
-        rc = lib.stegotpu_qim_extract_packed(
-            frames.data_ptr(), packed.data_ptr(), _dct_on(dev).data_ptr(),
-            dev.index, b, h, w, num_ac, stripe, rp, float(delta), _stream(dev))
-        _build.check(lib, rc, "qim_extract_packed launch")
+        _launch("stegotpu_qim_extract_packed", frames.data_ptr(),
+                packed.data_ptr(), _dct_on(dev).data_ptr(), dev.index, b, h,
+                w, num_ac, stripe, rp, float(delta), _stream(dev))
         EXTRACT_LAUNCHES += 1
     return packed
 
@@ -318,3 +415,97 @@ def extract_frames(frames: torch.Tensor, delta: float,
     _, h, w = _check_frames(frames)
     return packed_rows_to_bits(extract_frames_packed(frames, delta, num_ac),
                                h, w, num_ac, pick_stripe(h))
+
+
+def extract_frames_rows(frames: torch.Tensor, delta: float,
+                        num_ac: int) -> torch.Tensor:
+    """K5: extract every slot bit, one uint8 per lane, in the unpacked
+    compact-rows layout (B, (H/stripe)*rows_pad, W) on the frames' device
+    (the layout of pallas_kernel._extract_frames_pallas_rows). Lane x of
+    row jg*rows_pad + i*rn + g holds the bit of coefficient 8g + x%8 of
+    block (jg*stripe/8 + i, x//8); padding rows are 0. Pair with
+    rows_to_bits."""
+    global EXTRACT_ROWS_LAUNCHES
+    b, h, w = _check_frames(frames)
+    if frames.device.type == "cpu":
+        return extract_frames_rows_plain(frames, delta, num_ac)
+    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w)
+    rows = torch.empty(shape, dtype=torch.uint8, device=frames.device)
+    if rows.numel():
+        dev = frames.device
+        _launch("stegotpu_qim_extract_rows", frames.data_ptr(),
+                rows.data_ptr(), _dct_on(dev).data_ptr(), dev.index, b, h, w,
+                num_ac, stripe, rp, float(delta), _stream(dev))
+        EXTRACT_ROWS_LAUNCHES += 1
+    return rows
+
+
+def embed_and_extract_frames_packed(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: embed, then re-extract the quantized stego in the same pass.
+    Returns (stego (B, H, W) uint8, bits per frame (B,) int32, packed
+    (B, (H/stripe)*rows_pad, W/8) uint8 in K2's layout), on the frames'
+    device. Global bit 0 is the payload's first bit (no bit offset)."""
+    global ROUNDTRIP_LAUNCHES
+    b, h, w = _check_frames(frames)
+    cap = _check_payload(payload_bits, frames, num_ac)
+    if frames.device.type == "cpu":
+        return embed_and_extract_frames_packed_plain(
+            frames, payload_bits, total_bits, delta, num_ac)
+    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK)
+    stego = torch.empty_like(frames)
+    packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
+    if stego.numel():
+        dev = frames.device
+        _launch("stegotpu_qim_roundtrip_packed", frames.data_ptr(),
+                payload_bits.data_ptr(), stego.data_ptr(), packed.data_ptr(),
+                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                int(total_bits), stripe, rp, float(delta), _stream(dev))
+        ROUNDTRIP_LAUNCHES += 1
+    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
+                                  frames.device), packed
+
+
+def embed_and_extract_frames(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 then the wire-order unpack on the same device: (stego, bits per
+    frame, extracted (B, C) uint8), the counterpart of
+    pallas_kernel.embed_and_extract_frames_pallas_packed."""
+    _, h, w = _check_frames(frames)
+    stego, bpf, packed = embed_and_extract_frames_packed(
+        frames, payload_bits, total_bits, delta, num_ac)
+    return stego, bpf, packed_rows_to_bits(packed, h, w, num_ac,
+                                           pick_stripe(h))
+
+
+def embed_and_check_frames(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: embed, re-extract the quantized stego in the same pass, and
+    count the valid payload slots that read back wrong. Returns (stego
+    (B, H, W) uint8, bits per frame (B,) int32, errors per frame (B,)
+    int32) on the frames' device — the verified embed's fast path. Global
+    bit 0 is the payload's first bit (no bit offset)."""
+    global CHECK_LAUNCHES
+    b, h, w = _check_frames(frames)
+    cap = _check_payload(payload_bits, frames, num_ac)
+    if frames.device.type == "cpu":
+        return embed_and_check_frames_plain(frames, payload_bits, total_bits,
+                                            delta, num_ac)
+    stego = torch.empty_like(frames)
+    # zeroed on the current stream, the stream the kernel launches on
+    errors = torch.zeros(b, dtype=torch.int32, device=frames.device)
+    if stego.numel():
+        dev = frames.device
+        _launch("stegotpu_qim_embed_check", frames.data_ptr(),
+                payload_bits.data_ptr(), stego.data_ptr(), errors.data_ptr(),
+                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                int(total_bits), float(delta), _stream(dev))
+        CHECK_LAUNCHES += 1
+    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
+                                  frames.device), errors

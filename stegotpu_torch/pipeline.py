@@ -4,8 +4,9 @@ Counterpart of ``stegotpu/pipeline.py``. The host logic is the JAX
 package's, line for line; only the device sites differ: arrays go to the
 device as ``torch.from_numpy(...).to(device)`` and come back as
 ``.cpu().numpy()``, on the ``device`` the caller names (no global device
-guessing). The mesh and verified-embed branches are not ported yet and
-raise NotImplementedError; ``inspect_stego_header`` is not ported yet.
+guessing). The verified embed runs the CUDA kernel K3 through
+ops/verified.py. The mesh branches are not ported yet and raise
+NotImplementedError; ``inspect_stego_header`` is not ported yet.
 
 Same observable semantics as the reference's L3 orchestration
 (``embed_gambar_ke_video_final`` embed_process.py:17-152,
@@ -207,8 +208,6 @@ def _embed_payload(
         raise ValueError("embedding requires delta > 0 (delta <= 0 embeds nothing)")
     if mesh is not None:
         raise _not_ported("mesh embedding", "M11 parallel/")
-    if config.verified_embed:
-        raise _not_ported("verified embed", "M6 ops/verified.py")
     if sealed_bits is not None:
         all_bits = np.asarray(sealed_bits, dtype=np.uint8)
     else:
@@ -236,11 +235,22 @@ def _embed_payload(
             return EmbedResult(False, None, total, 0, 0,
                                error="zero embedding capacity per frame "
                                      "(num_ac_coeffs/frame size)")
-        embed = embed_fn(config.kernel, h8, w8, config.qim_precision)
+        if config.verified_embed:
+            from stegotpu_torch.ops.verified import embed_frames_verified_fast
 
-        def run_embed(gray, seg, remaining):
-            return embed(_to_device(gray, device), _to_device(seg, device),
-                         remaining, float(config.delta), config.num_ac_coeffs)
+            def run_embed_verified(gray, seg, remaining):
+                return embed_frames_verified_fast(
+                    _to_device(gray, device), _to_device(seg, device),
+                    remaining, float(config.delta), config.num_ac_coeffs,
+                    repair_rounds=config.repair_rounds, kernel=config.kernel,
+                    precision=config.qim_precision)
+        else:
+            embed = embed_fn(config.kernel, h8, w8, config.qim_precision)
+
+            def run_embed(gray, seg, remaining):
+                return embed(_to_device(gray, device), _to_device(seg, device),
+                             remaining, float(config.delta),
+                             config.num_ac_coeffs)
 
         if lo % batch_frames:
             raise ValueError(
@@ -262,6 +272,7 @@ def _embed_payload(
             except OSError as e:
                 log.warning("segment seek failed (%s); falling back to "
                             "decode-and-discard", e)
+        residual_total = 0
         first_orig = first_stego = None
         # One-deep device pipeline: batch k+1 is dispatched before batch k's
         # stego frames are pulled back for encoding, overlapping device
@@ -319,8 +330,20 @@ def _embed_payload(
                             all_bits[cursor : cursor + batch_frames * cap_bits],
                             batch_frames * cap_bits,
                         ).reshape(batch_frames, cap_bits)
-                        with _stage(timer, "device_dispatch"):
-                            stego_dev, _bpf_dev = run_embed(gray, seg, remaining)
+                        if config.verified_embed:
+                            with _stage(timer, "device_dispatch"):
+                                stego_dev, _bpf_dev, residual = run_embed_verified(
+                                    gray, seg, remaining)
+                            residual = int(residual)
+                            if residual:
+                                residual_total += residual
+                                log.error(
+                                    "verified embed: %d unrepairable slots "
+                                    "(extremely saturated cover)", residual,
+                                )
+                        else:
+                            with _stage(timer, "device_dispatch"):
+                                stego_dev, _bpf_dev = run_embed(gray, seg, remaining)
                         # host-side bits-per-frame (identical to the device calc)
                         bpf = np.clip(
                             remaining - np.arange(n, dtype=np.int64) * cap_bits,
@@ -359,7 +382,8 @@ def _embed_payload(
             # forensics, and the result carries the counters
             return EmbedResult(
                 False, out_path, total, cursor, frames_seen, first_orig,
-                first_stego, error=f"video read failed: {e}")
+                first_stego, residual_total,
+                error=f"video read failed: {e}")
 
     if frame_range is None:
         success = cursor >= total
@@ -372,9 +396,22 @@ def _embed_payload(
         log.warning(
             "video ended before full payload embedded (%d/%d bits)", cursor, total
         )
+    if residual_total and not config.allow_residual:
+        # verified mode's whole point: a wrong bit kills the AES-GCM tag on
+        # extract, so emit a FAILURE the caller can act on, not a log line
+        # (the file is still on disk for forensics; the result names why)
+        log.error(
+            "verified embed FAILED: %d unrepairable payload bits "
+            "(use allow_residual to emit anyway)", residual_total,
+        )
+        return EmbedResult(
+            False, out_path, total, cursor, frames_seen, first_orig,
+            first_stego, residual_total,
+            error=f"verified embed: {residual_total} unrepairable payload "
+                  "bits (use allow_residual to emit anyway)")
     return EmbedResult(
         success, out_path if success else None, total, cursor, frames_seen,
-        first_orig, first_stego,
+        first_orig, first_stego, residual_total,
         error=None if success else
         f"video ended before full payload embedded ({cursor}/{total} bits)")
 

@@ -115,3 +115,144 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(dev):
         sk.extract_frames_packed(frames.transpose(1, 2), 20.0, 10)
     with pytest.raises(ValueError):  # payload on another device
         sk.embed_frames(frames, payload.cpu(), total, 20.0, 10)
+
+
+def _wire(packed, h, w, num_ac):
+    return sk.packed_rows_to_bits(packed, h, w, num_ac, sk.pick_stripe(h))
+
+
+def _cover(dev, kind, b, h, w, num_ac, seed=8):
+    """(frames, payload, total): a mid-range or near-black cover and a
+    payload ending mid-block, with no bit offset (K3 and K4 take none)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (16, 240) if kind == "mid" else (0, 6)
+    frames = torch.from_numpy(rng.integers(lo, hi, (b, h, w), np.uint8))
+    cap = (h // 8) * (w // 8) * num_ac
+    payload = torch.from_numpy(rng.integers(0, 2, (b, cap), np.uint8))
+    return frames.to(dev), payload.to(dev), b * cap - OFFSET
+
+
+@pytest.mark.parametrize("kind", ["mid", "dark"])
+@pytest.mark.parametrize("b,h,w,num_ac", [(2, 48, 240, 10), (2, 64, 64, 1),
+                                          (3, 1080, 1920, 10),
+                                          (2, 768, 1360, 15)])
+def test_fused_kernels_match_plain(dev, b, h, w, num_ac, kind):
+    """K3, K4 and K5 against their plain versions: bits per frame
+    identical, wire-order bits identical outside the exactness envelope,
+    K3's count equal to the count the plain extract takes of K3's stego
+    up to the valid slots inside the envelope (where the two f32 reads may
+    legitimately differ)."""
+    frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
+    s3, bpf3, err3 = sk.embed_and_check_frames(frames, payload, total, 20.0,
+                                               num_ac)
+    s3p, bpf3p, _ = sk.embed_and_check_frames_plain(frames, payload, total,
+                                                    20.0, num_ac)
+    s4, bpf4, p4 = sk.embed_and_extract_frames_packed(frames, payload, total,
+                                                      20.0, num_ac)
+    _, bpf4p, _ = sk.embed_and_extract_frames_packed_plain(
+        frames, payload, total, 20.0, num_ac)
+    torch.cuda.synchronize()
+    assert torch.equal(bpf3, bpf3p) and torch.equal(bpf4, bpf4p)
+    assert torch.equal(bpf3, bpf4)
+    off = (s3.int() - s3p.int()).abs() > 1
+    assert off.double().mean().item() < max(FLIP_BUDGET, 64 / off.numel())
+    count_p = sk.count_wrong_bits(
+        _wire(sk.extract_frames_packed_plain(s3, 20.0, num_ac), h, w, num_ac),
+        payload, total)
+    valid = torch.arange(payload.numel(), device=dev).reshape(
+        payload.shape) < total
+    slack = (_near_boundary(s3, 20.0, num_ac) & valid).sum(1)
+    assert ((err3 - count_p).abs() <= slack).all()
+    if kind == "mid":
+        assert not err3.any()
+    stripe = sk.pick_stripe(h)
+    for x in (frames, s4):
+        bits5 = sk.rows_to_bits(sk.extract_frames_rows(x, 20.0, num_ac), h, w,
+                                num_ac, stripe)
+        bits5p = sk.rows_to_bits(sk.extract_frames_rows_plain(x, 20.0, num_ac),
+                                 h, w, num_ac, stripe)
+        assert not ((bits5 != bits5p) & ~_near_boundary(x, 20.0, num_ac)).any()
+    near4 = _near_boundary(s4, 20.0, num_ac)
+    assert not ((_wire(p4, h, w, num_ac) != _wire(
+        sk.extract_frames_packed_plain(s4, 20.0, num_ac), h, w, num_ac))
+        & ~near4).any()
+
+
+@pytest.mark.parametrize("kind", ["mid", "dark"])
+@pytest.mark.parametrize("delta", [20.0, 8.0, 0.0])
+@pytest.mark.parametrize("b,h,w,num_ac", [(2, 48, 240, 10), (2, 64, 64, 63),
+                                          (2, 1080, 1920, 10),
+                                          (2, 768, 1360, 30)])
+def test_zero_tolerance_identities(dev, b, h, w, num_ac, delta, kind):
+    """Kernel against kernel, same device code: K3's and K4's stego are
+    K1's byte for byte, K4's packed bits are K2's of K4's stego byte for
+    byte, K5 is K2 lane for lane, and K3's per-frame count equals a count
+    from K2 on K3's stego."""
+    frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
+    s1, bpf1 = sk.embed_frames(frames, payload, total, delta, num_ac)
+    s3, bpf3, err3 = sk.embed_and_check_frames(frames, payload, total, delta,
+                                               num_ac)
+    s4, bpf4, p4 = sk.embed_and_extract_frames_packed(frames, payload, total,
+                                                      delta, num_ac)
+    assert torch.equal(s3, s1) and torch.equal(s4, s1)
+    assert torch.equal(bpf3, bpf1) and torch.equal(bpf4, bpf1)
+    assert torch.equal(p4, sk.extract_frames_packed(s4, delta, num_ac))
+    for x in (frames, s1):
+        rows = sk.extract_frames_rows(x, delta, num_ac)
+        packed = sk.extract_frames_packed(x, delta, num_ac)
+        spread = (packed[..., None] >> torch.arange(8, dtype=torch.uint8,
+                                                    device=dev)) & 1
+        assert torch.equal(rows, spread.reshape(rows.shape))
+    count = sk.count_wrong_bits(sk.extract_frames(s3, delta, num_ac),
+                                payload, total)
+    assert torch.equal(err3, count)
+    if delta == 0.0:  # every valid slot reads 0 and the stego is the cover
+        assert torch.equal(s3, frames)
+        assert int(err3.sum()) == int(payload.reshape(-1)[:total].sum())
+
+
+def test_fused_kernels_launch_once_each(dev):
+    frames, payload, total = _cover(dev, "mid", 2, 48, 128, 10)
+    before = (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
+              sk.EXTRACT_ROWS_LAUNCHES)
+    sk.embed_and_check_frames(frames, payload, total, 20.0, 10)
+    sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
+    sk.extract_frames_rows(frames, 20.0, 10)
+    assert (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
+            sk.EXTRACT_ROWS_LAUNCHES) == tuple(n + 1 for n in before)
+
+
+def test_verified_fast_path_on_card(dev):
+    """embed_frames_verified_fast launches K3; on a clean cover it keeps
+    K3's stego, on a flat-black cover it repairs to residual 0, and K2
+    reads the payload back exactly from both."""
+    from stegotpu_torch.ops.verified import (embed_frames_verified,
+                                             embed_frames_verified_fast)
+
+    rng = np.random.default_rng(9)
+    h, w, num_ac = 64, 128, 10
+    cap = (h // 8) * (w // 8) * num_ac
+    payload = torch.from_numpy(rng.integers(0, 2, (2, cap), np.uint8)).to(dev)
+    for frames in (torch.from_numpy(rng.integers(60, 196, (2, h, w), np.uint8)),
+                   torch.zeros((2, h, w), dtype=torch.uint8)):
+        frames = frames.to(dev)
+        before = sk.CHECK_LAUNCHES
+        stego, bpf, residual = embed_frames_verified_fast(
+            frames, payload, 2 * cap, 20.0, num_ac)
+        assert sk.CHECK_LAUNCHES == before + 1
+        assert int(residual) == 0 and bpf.tolist() == [cap, cap]
+        assert torch.equal(sk.extract_frames(stego, 20.0, num_ac), payload)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="full-precision"):
+            embed_frames_verified(frames, payload, 2 * cap, 20.0, num_ac)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_exactness_harness_on_card(dev):
+    from stegotpu_torch.ops.exactness import EXACT_KEYS, quick_exactness_check
+
+    row = quick_exactness_check(device=dev)
+    assert row["ok"], row
+    assert all(row[k] == 0 for k in EXACT_KEYS)

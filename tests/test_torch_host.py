@@ -37,9 +37,10 @@ GOLDEN = REPO / "tests" / "golden"
 
 
 def test_import_needs_only_torch_numpy_scipy():
-    """`import stegotpu_torch.pipeline, stegotpu_torch.ops.stripe_kernel`
-    succeeds with jax, stegotpu, cryptography, PIL and cv2 blocked, and
-    leaves no jax module behind."""
+    """Importing the pipeline, every kernel module, the verified embed, the
+    exactness harness, the fixtures and the GPU check tool succeeds with
+    jax, stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax
+    module behind."""
     code = """
 import sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
@@ -49,6 +50,8 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import stegotpu_torch.pipeline, stegotpu_torch.ops.stripe_kernel
+import stegotpu_torch.ops.verified, stegotpu_torch.ops.exactness
+import stegotpu_torch.fixtures, stegotpu_torch.gpucheck
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in BLOCKED or m.startswith("jax"))
 assert not bad, bad
@@ -238,3 +241,40 @@ def test_image_codec_equal(tmp_path):
         timage.bytes_to_pixels(px.tobytes(), 13, 9), px)
     with pytest.raises(ValueError):
         timage.bytes_to_pixels(px.tobytes(), 12, 9)
+
+
+def test_fixtures_equal(tmp_path):
+    """stegotpu_torch.fixtures writes the same secret images and cover
+    videos as stegotpu.fixtures from the same arguments."""
+    import cv2
+
+    from stegotpu import fixtures as jfix
+    from stegotpu_torch import fixtures as tfix
+
+    for kind in ("gray", "pattern", "noise"):
+        tfix.make_secret_image(tmp_path / f"t_{kind}.png", 20, 14, kind, 3)
+        jfix.make_secret_image(tmp_path / f"j_{kind}.png", 20, 14, kind, 3)
+        np.testing.assert_array_equal(
+            timage.load_image_gray(tmp_path / f"t_{kind}.png"),
+            jimage.load_image_gray(tmp_path / f"j_{kind}.png"))
+    with pytest.raises(ValueError):
+        tfix.make_secret_image(tmp_path / "x.png", kind="stripes")
+
+    def frames(path):
+        cap = cv2.VideoCapture(str(path))
+        out = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                cap.release()
+                return np.stack(out)
+            out.append(f)
+
+    for kind in ("moving", "noise"):
+        tfix.make_cover_video(tmp_path / f"t_{kind}.mp4", 64, 48, 5,
+                              kind=kind, seed=2)
+        jfix.make_cover_video(tmp_path / f"j_{kind}.mp4", 64, 48, 5,
+                              kind=kind, seed=2)
+        t = frames(tmp_path / f"t_{kind}.mp4")
+        assert t.shape == (5, 48, 64, 3)
+        np.testing.assert_array_equal(t, frames(tmp_path / f"j_{kind}.mp4"))

@@ -215,3 +215,120 @@ def test_wrappers_reject_bad_inputs():
         sk.embed_frames(_t(frames), _t(payload[:, :-1]), total, 20.0, 10)
     with pytest.raises(ValueError):
         sk.extract_frames_packed(_t(frames).to(torch.int32), 20.0, 10)
+
+
+def _fused_inputs(seed, b, h, w, num_ac, frac, lo=16, hi=240):
+    """Covers and a payload whose end falls mid-block, with no bit offset
+    (the fused kernels K3/K4 take none: global bit 0 is the payload's)."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(lo, hi, (b, h, w), dtype=np.uint8)
+    cap = (h // 8) * (w // 8) * num_ac
+    payload = rng.integers(0, 2, (b, cap), dtype=np.uint8)
+    return frames, payload, max(1, int(frac * b * cap) - OFFSET)
+
+
+def _valid(payload: np.ndarray, total: int) -> np.ndarray:
+    return np.arange(payload.size).reshape(payload.shape) < total
+
+
+@pytest.mark.parametrize("num_ac", [1, 10, 15])
+@pytest.mark.parametrize("frac", [1.0, 0.4])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_kernels_match_jax(shape, frac, num_ac):
+    """K3 (embed + check) and K4 (embed + packed re-extract), plain, against
+    the interpreted Pallas kernels _embed_and_check_frames_pallas and
+    embed_and_extract_frames_pallas_packed: bits per frame identical, stego
+    within the cross-variant budget, the payload back exactly, zero errors
+    counted on a mid-range cover. And the identities the exactness harness
+    holds at zero tolerance: K3's and K4's stego are K1's, K4's bits and
+    K3's count are K2's reading of that stego."""
+    b, h, w = shape
+    delta = 20.0
+    frames, payload, total = _fused_inputs(4321, b, h, w, num_ac, frac)
+    jargs = (jnp.asarray(frames), jnp.asarray(payload), jnp.int32(total),
+             jnp.float32(delta), num_ac)
+    s_jc, bpf_jc, err_j = (np.asarray(a) for a in
+                           jpk._embed_and_check_frames_pallas(*jargs, True))
+    s_jr, bpf_jr, ex_j = (np.asarray(a) for a in
+                          jpk.embed_and_extract_frames_pallas_packed(*jargs))
+    targs = (_t(frames), _t(payload), total, delta, num_ac)
+    s_tc, bpf_tc, err_t = (a.numpy() for a in sk.embed_and_check_frames(*targs))
+    s_tr, bpf_tr, ex_t = (a.numpy() for a in sk.embed_and_extract_frames(*targs))
+    s_1, bpf_1 = (a.numpy() for a in sk.embed_frames(*targs))
+
+    for bpf in (bpf_jc, bpf_jr, bpf_tc, bpf_tr):
+        np.testing.assert_array_equal(bpf, bpf_1)
+    _assert_stego_close(s_tc, s_jc, frames, delta, num_ac)
+    _assert_stego_close(s_tr, s_jr, frames, delta, num_ac)
+    np.testing.assert_array_equal(s_tc, s_1)
+    np.testing.assert_array_equal(s_tr, s_1)
+    assert err_t.dtype == np.int32 and err_t.shape == (b,)
+    assert not err_t.any() and not err_j.any()
+    np.testing.assert_array_equal(
+        ex_t, sk.extract_frames(_t(s_tr), delta, num_ac).numpy())
+    valid = _valid(payload, total)
+    for ex in (ex_t, ex_j):
+        np.testing.assert_array_equal(ex[valid], payload[valid])
+
+
+def test_check_counts_clipping_losses_like_jax():
+    """On a flat-black cover the embed loses bits to clipping: K3's plain
+    version counts exactly the valid slots that K2 reads back wrong from
+    its stego, per frame, and the JAX oracle reads that stego the same way
+    outside the exactness envelope. Past the payload end nothing counts."""
+    b, h, w, num_ac, delta = 2, 48, 128, 10, 20.0
+    frames, payload, _ = _fused_inputs(77, b, h, w, num_ac, 1.0, 0, 1)
+    cap = payload.shape[1]
+    for total in (b * cap - OFFSET, cap + 37):
+        stego, bpf, err = sk.embed_and_check_frames(
+            _t(frames), _t(payload), total, delta, num_ac)
+        got = sk.extract_frames(stego, delta, num_ac).numpy()
+        wrong = (got != payload) & _valid(payload, total)
+        np.testing.assert_array_equal(err.numpy(), wrong.sum(1))
+        assert err.sum() > 0  # test premise: clipping flips bits here
+        ref = np.asarray(jqim.extract_frames(jnp.asarray(stego.numpy()),
+                                             jnp.float32(delta), num_ac))
+        near = _near_boundary(stego.numpy(), delta, num_ac)
+        assert not ((ref != got) & ~near).any()
+        _, _, err_j = jpk._embed_and_check_frames_pallas(
+            jnp.asarray(frames), jnp.asarray(payload), jnp.int32(total),
+            jnp.float32(delta), num_ac, True)
+        assert np.asarray(err_j).sum() > 0
+        assert bpf.tolist() == np.clip(total - np.arange(b) * cap, 0,
+                                       cap).tolist()
+
+
+@pytest.mark.parametrize("delta", [8, 20])
+@pytest.mark.parametrize("num_ac", [1, 10, 15])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_extract_rows_matches_jax(shape, num_ac, delta):
+    """K5 (plain) against the interpreted Pallas _extract_frames_pallas_rows:
+    the same unpacked compact-rows layout with zero padding rows, wire-order
+    bits identical outside the exactness envelope (via the port's and the
+    JAX package's rows_to_bits, which agree on any rows), and identical to
+    K2's bits lane for lane (packed vs unpacked, zero tolerance)."""
+    b, h, w = shape
+    frames, _, _ = _inputs(99, b, h, w, num_ac, 1.0)
+    stripe = sk.pick_stripe(h)
+    rows_t = sk.extract_frames_rows(_t(frames), delta, num_ac).numpy()
+    rows_j = np.asarray(jpk._extract_frames_pallas_rows(
+        jnp.asarray(frames), jnp.float32(delta), num_ac, True))
+    assert rows_t.shape == rows_j.shape and rows_t.dtype == np.uint8
+    assert set(np.unique(rows_t)) <= {0, 1}
+    rp = sk._rows_pad(stripe, sk.rows_per_block(num_ac))
+    pad = np.arange(rows_t.shape[1]) % rp >= (stripe // 8) * \
+        sk.rows_per_block(num_ac)
+    assert not rows_t[:, pad].any() and not rows_j[:, pad].any()
+    bits_t = sk.rows_to_bits(_t(rows_t), h, w, num_ac, stripe).numpy()
+    for rows in (rows_t, rows_j):
+        np.testing.assert_array_equal(
+            sk.rows_to_bits(torch.tensor(rows), h, w, num_ac, stripe).numpy(),
+            np.asarray(jpk.rows_to_bits(jnp.asarray(rows), h, w, num_ac,
+                                        stripe)))
+    bits_j = np.asarray(jpk.rows_to_bits(jnp.asarray(rows_j), h, w, num_ac,
+                                         stripe))
+    assert not ((bits_t != bits_j) & ~_near_boundary(frames, delta, num_ac)).any()
+    packed = sk.extract_frames_packed(_t(frames), delta, num_ac).numpy()
+    np.testing.assert_array_equal(
+        np.packbits(rows_t.reshape(b, rows_t.shape[1], w // 8, 8), axis=-1,
+                    bitorder="little")[..., 0], packed)

@@ -191,11 +191,9 @@ def test_array_api_matches_jax():
 
 
 def test_unported_branches_raise(multibatch, tmp_path):
+    """The mesh branches are not ported yet; the verified branch is
+    (tests/test_torch_verified.py)."""
     d, pub = multibatch
-    with pytest.raises(NotImplementedError, match="M6"):
-        embed_image_in_video(d / "cover.avi", d / "secret.png",
-                             tmp_path / "s.avi", pub,
-                             StegoConfig(verified_embed=True))
     with pytest.raises(NotImplementedError, match="M11"):
         embed_image_in_video(d / "cover.avi", d / "secret.png",
                              tmp_path / "s.avi", pub, mesh=object())

@@ -6,14 +6,15 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the five CUDA stripe kernels from stegotpu_torch/csrc and runs
-nine phases:
+It builds the eight CUDA kernels from stegotpu_torch/csrc (one nvcc per
+source, all started together) and runs ten phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
-4.   every kernel's time and its plain version's, with CUDA events;
+4.   every kernel's time and its plain version's, with CUDA events
+     (K1-K8);
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -23,11 +24,20 @@ nine phases:
 8.   the TF32 sentinel: a row fails with TF32 in the oracle, and passes
      without;
 9.   the verified embed at full width (the path of K3), on arrays and file
-     to file.
+     to file;
+10.  K6 (unpacked fused round trip) against K1, K5 and K4 with zero
+     tolerance and against its plain version; K7 and K8 (Kronecker embed
+     and extract) against their plain versions; then the path of the three
+     kernels: the fused and the Kronecker round trips at 1080p with their
+     quality metrics (ops/qim.roundtrip_metrics), the oracle's
+     embed_extract_evaluate, and the device PSNR/SSIM against the host's.
 
 Every phase prints; any failure exits non-zero. The line before the last
 is a JSON object with each kernel's route, source, launches on its path,
-error and times; the last line is {"ok": true, "device": {...}}.
+error and times: "ms"/"plain_ms" the median CUDA-event time of one call
+(host time where the host side outlasts the device work),
+"device_ms"/"plain_device_ms" the device time per call with the host
+queued ahead. The last line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
@@ -81,15 +91,18 @@ def _gpu_line() -> str:
 
 def _ptxas_summary(log: str) -> str:
     """Registers and spill-store bytes of every kernel from nvcc's
-    -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...', the
-    instantiation of the default num_ac=10 (rn=2) and the largest over
-    rn=1..8."""
+    -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...' for the stripe
+    kernels, the instantiation of the default num_ac=10 (rn=2) and the
+    largest over rn=1..8; 'kron_embed:64r/0s' for the Kronecker kernels,
+    which have one instantiation."""
     per: dict[str, dict[int, tuple[int, int]]] = {}
     name, rn, spill = None, 0, 0
     for line in log.splitlines():
-        m = re.search(r"\dqim_([a-z_]+)_kernelILi(\d)E", line)
+        m = re.search(r"\d(?:qim_([a-z_]+)_kernelILi(\d)E|(kron_[a-z]+)_kernelE)",
+                      line)
         if m and "Compiling entry" in line:
-            name, rn, spill = m.group(1), int(m.group(2)), 0
+            name = m.group(1) or m.group(3)
+            rn, spill = int(m.group(2) or 0), 0
         m2 = re.search(r"(\d+) bytes spill stores", line)
         if m2 and name:
             spill = int(m2.group(1))
@@ -99,6 +112,9 @@ def _ptxas_summary(log: str) -> str:
             name = None
     out = []
     for kernel, by_rn in sorted(per.items()):
+        if set(by_rn) == {0}:
+            out.append(f"{kernel}:{by_rn[0][0]}r/{by_rn[0][1]}s")
+            continue
         r2, s2 = by_rn.get(2, (-1, -1))
         out.append(f"{kernel}<2>:{r2}r/{s2}s(max "
                    f"{max(r for r, _ in by_rn.values())}r/"
@@ -107,7 +123,10 @@ def _ptxas_summary(log: str) -> str:
 
 
 def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, over `runs` calls after warm-up."""
+    """Median CUDA-event time of one call, over `runs` calls after warm-up.
+    The events bracket the host's work too: where a call's host side (the
+    wrapper's checks, the launch, its small torch ops) outlasts its device
+    work, the device waits and this is host time."""
     import torch
 
     for _ in range(warmup):
@@ -125,18 +144,52 @@ def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-COUNTERS = ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
-            "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES")
+def _queued_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: the mean over `runs` calls that the host
+    queued while the stream was held by a sleep kernel, so they run back to
+    back (a wrapper's small torch ops count, the host's time does not)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s: the host queues every call
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
-def _counts(sk) -> dict[str, int]:
-    return {c: getattr(sk, c) for c in COUNTERS}
+COUNTERS = {
+    "stripe_kernel": ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
+                      "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
+                      "ROUNDTRIP_ROWS_LAUNCHES"),
+    "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
+}
 
 
-def _set_counts(sk, counts: dict[str, int] | None = None) -> None:
-    """Set every launch counter (to 0 without `counts`)."""
-    for c in COUNTERS:
-        setattr(sk, c, 0 if counts is None else counts[c])
+def _counter_modules():
+    from stegotpu_torch.ops import stripe_kernel
+    from stegotpu_torch.ops.experimental import kron_kernel
+
+    return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel}
+
+
+def _counts() -> dict[str, int]:
+    return {c: getattr(mod, c) for key, mod in _counter_modules().items()
+            for c in COUNTERS[key]}
+
+
+def _set_counts(counts: dict[str, int] | None = None) -> None:
+    """Set every launch counter of every kernel module (to 0 without
+    `counts`)."""
+    for key, mod in _counter_modules().items():
+        for c in COUNTERS[key]:
+            setattr(mod, c, 0 if counts is None else counts[c])
 
 
 def _near_boundary_t(frames, delta: float, num_ac: int):
@@ -183,6 +236,7 @@ def main() -> int:
     from stegotpu_torch.config import StegoConfig
     from stegotpu_torch.ops import _build, qim
     from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.ops.experimental import kron_kernel as kk
     from stegotpu_torch.pipeline import (embed_payload_into_gray_frames,
                                          extract_bits_from_gray_frames)
 
@@ -284,7 +338,7 @@ def main() -> int:
     bits = payload_mod.build_payload_bits(parts)
     cover = rng.integers(16, 240, (24, 1080, 1920), dtype=np.uint8)
     cfg = StegoConfig()
-    _set_counts(sk)
+    _set_counts()
     t0 = time.perf_counter()
     stego, bpf = embed_payload_into_gray_frames(cover, bits, cfg, device=dev)
     out = extract_bits_from_gray_frames(stego, cfg, device=dev)
@@ -317,30 +371,40 @@ def main() -> int:
     payload = torch.from_numpy(
         rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
     total = b * cap
-    counts = _counts(sk)
+    counts = _counts()
     args = (frames, payload, total, DELTA, NUM_AC)
-    times = {
-        "embed": _time_ms(lambda: sk.embed_frames(*args)),
-        "embed_plain": _time_ms(lambda: sk.embed_frames_plain(*args)),
-        "extract_packed": _time_ms(lambda: sk.extract_frames_packed(
-            frames, DELTA, NUM_AC)),
-        "extract_packed_plain": _time_ms(
-            lambda: sk.extract_frames_packed_plain(frames, DELTA, NUM_AC)),
-        "embed_check": _time_ms(lambda: sk.embed_and_check_frames(*args)),
-        "embed_check_plain": _time_ms(
-            lambda: sk.embed_and_check_frames_plain(*args)),
-        "roundtrip_packed": _time_ms(
-            lambda: sk.embed_and_extract_frames_packed(*args)),
-        "roundtrip_packed_plain": _time_ms(
-            lambda: sk.embed_and_extract_frames_packed_plain(*args)),
-        "extract_rows": _time_ms(lambda: sk.extract_frames_rows(
-            frames, DELTA, NUM_AC)),
-        "extract_rows_plain": _time_ms(lambda: sk.extract_frames_rows_plain(
-            frames, DELTA, NUM_AC)),
+    calls = {
+        "embed": lambda: sk.embed_frames(*args),
+        "embed_plain": lambda: sk.embed_frames_plain(*args),
+        "extract_packed": lambda: sk.extract_frames_packed(frames, DELTA,
+                                                           NUM_AC),
+        "extract_packed_plain": lambda: sk.extract_frames_packed_plain(
+            frames, DELTA, NUM_AC),
+        "embed_check": lambda: sk.embed_and_check_frames(*args),
+        "embed_check_plain": lambda: sk.embed_and_check_frames_plain(*args),
+        "roundtrip_packed": lambda: sk.embed_and_extract_frames_packed(*args),
+        "roundtrip_packed_plain":
+            lambda: sk.embed_and_extract_frames_packed_plain(*args),
+        "extract_rows": lambda: sk.extract_frames_rows(frames, DELTA, NUM_AC),
+        "extract_rows_plain": lambda: sk.extract_frames_rows_plain(
+            frames, DELTA, NUM_AC),
+        "roundtrip_rows": lambda: sk.embed_and_extract_frames_rows(*args),
+        "roundtrip_rows_plain":
+            lambda: sk.embed_and_extract_frames_rows_plain(*args),
+        "kron_embed": lambda: kk.embed_frames_kron(*args),
+        "kron_embed_plain": lambda: kk.embed_frames_kron_plain(*args),
+        "kron_extract": lambda: kk.extract_frames_kron(frames, DELTA, NUM_AC),
+        "kron_extract_plain": lambda: kk.extract_frames_kron_plain(
+            frames, DELTA, NUM_AC),
     }
-    _set_counts(sk, counts)  # timing is not a path's run
+    times = {k: _time_ms(fn) for k, fn in calls.items()}
+    queued = {k: _queued_ms(fn) for k, fn in calls.items()}
+    _set_counts(counts)  # timing is not a path's run
     print(f"phase 4 times 1920x1080 B=8 (median of 20 CUDA-event runs, {gpu}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+    print(f"phase 4 device times 1920x1080 B=8 (mean of 20 calls queued "
+          f"behind a sleep kernel, {gpu}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items()), flush=True)
 
     # phase 5: file to file, where the host libraries are installed
     libs = {m: importlib.util.find_spec(m) is not None
@@ -364,17 +428,27 @@ def main() -> int:
     launches.update(_identities_and_harness(dev, rng, libs["cv2"]))  # phase 7
     _tf32_sentinel(dev)                                       # phase 8
     launches.update(_verified_path(dev, rng, files))          # phase 9
+    errs10, launches10 = _variants_and_metrics(dev, rng)      # phase 10
+    errs.update(errs10)
+    launches.update(launches10)
 
-    replaces = {"embed": 529, "extract_packed": 577, "embed_check": 906,
-                "roundtrip_packed": 804, "extract_rows": 545}
+    stripe = ("stegotpu_torch/csrc/qim_stripe.cu", "stegotpu/ops/pallas_kernel.py")
+    kron = ("stegotpu_torch/csrc/qim_kron.cu",
+            "stegotpu/ops/experimental/pallas_kron.py")
+    replaces = {"embed": (stripe, 529), "extract_packed": (stripe, 577),
+                "embed_check": (stripe, 906), "roundtrip_packed": (stripe, 804),
+                "extract_rows": (stripe, 545), "roundtrip_rows": (stripe, 785),
+                "kron_embed": (kron, 58), "kron_extract": (kron, 80)}
     errs.update(embed=embed_err, extract_packed=extract_err)
     kernels = [
-        {"name": k, "route": "cuda",
-         "source": "stegotpu_torch/csrc/qim_stripe.cu",
-         "replaces": f"stegotpu/ops/pallas_kernel.py:{line}",
+        {"name": k, "route": "cuda", "source": source,
+         "replaces": f"{tpu_file}:{line}",
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k], "plain_ms": times[f"{k}_plain"]}
-        for k, line in replaces.items()]
+         "ms": times[k], "plain_ms": times[f"{k}_plain"],
+         "device_ms": queued[k], "plain_device_ms": queued[f"{k}_plain"]}
+        for k, ((source, tpu_file), line) in replaces.items()]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was not launched on its path: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -426,7 +500,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
                 writer.write_bgr_batch(batch)
         priv, pub = crypto.generate_keypair(rng)
         crypto.save_keypair_pem(priv, tmp / "priv.pem", tmp / "pub.pem")
-        _set_counts(sk)
+        _set_counts()
         embed_stages, extract_stages = _StageTimer(), _StageTimer()
         t0 = time.perf_counter()
         res = embed_image_in_video(
@@ -441,7 +515,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
             StegoConfig(), tmp / "extracted.png", batch_frames=8,
             timer=extract_stages, device=dev)
         t2 = time.perf_counter()
-        counts = _counts(sk)
+        counts = _counts()
         check(out.success and out.hash_ok, f"file extract failed: {out.error}")
         check(np.array_equal(out.pixels, secret),
               "file extract: secret not pixel-identical")
@@ -586,7 +660,7 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
                   "K5 == K2 lane for lane; K3 count == K2 count "
                   f"({int(count.sum())})", flush=True)
 
-    _set_counts(sk)
+    _set_counts()
     rows = [exactness.quick_exactness_check(device=dev)]
     for content in ("noise", "compressed") if with_cv2 else ("noise",):
         rows += exactness.check_config(4, 1080, 1920, 10, [DELTA],
@@ -691,7 +765,7 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
     check(lost > 0, "test premise: the plain embed must lose bits on the "
           "letterboxed cover")
 
-    _set_counts(sk)
+    _set_counts()
     t0 = time.perf_counter()
     s_mid, bpf_mid, r_mid = embed_frames_verified_fast(mid, payload, total,
                                                        DELTA, NUM_AC)
@@ -731,6 +805,158 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
         print("phase 9 verified file-to-file: skipped (host libraries)",
               flush=True)
     return launches
+
+
+def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 10: K6 against K1, K5 and K4 (zero tolerance) and against its
+    plain version at 1920x1080 and 1360x768; K7 and K8 against their plain
+    versions at 1920x1080 and 1280x720, with a bit offset and a payload
+    that ends in the batch; both covers. Then the path of the three
+    kernels: the fused (K6) and Kronecker (K7 + K8) round trips at 1080p,
+    B=8, scored by roundtrip_metrics, then the oracle's
+    embed_extract_evaluate and the device PSNR/SSIM against the host's.
+    Returns each kernel's max_abs_err (largest stego pixel difference for
+    K6 and K7; 1 if a K8 bit differed outside the envelope) and its
+    launches on the path."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.metrics import psnr_batch, psnr_np, ssim_batch, ssim_np
+    from stegotpu_torch.ops import qim
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.ops.experimental import kron_kernel as kk
+    from stegotpu_torch.ops.experimental.qim_fast import build_state_plane
+
+    errs = {"roundtrip_rows": 0, "kron_embed": 0, "kron_extract": 0}
+    for (h, w) in ((1080, 1920), (768, 1360)):
+        for cover in ("mid", "uniform"):
+            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            args = (frames, payload, total, DELTA, NUM_AC)
+            s6, bpf6, rows6 = sk.embed_and_extract_frames_rows(*args)
+            s1, bpf1 = sk.embed_frames(*args)
+            _, _, p4 = sk.embed_and_extract_frames_packed(*args)
+            stripe = sk.pick_stripe(h)
+            bits6 = sk.rows_to_bits(rows6, h, w, NUM_AC, stripe)
+            check(torch.equal(s6, s1) and torch.equal(bpf6, bpf1),
+                  f"K6 stego != K1 stego at {h}x{w} ({cover})")
+            check(torch.equal(rows6, sk.extract_frames_rows(s6, DELTA, NUM_AC)),
+                  f"K6 rows != K5(K6 stego) at {h}x{w} ({cover})")
+            check(torch.equal(bits6, _wire(sk, p4, h)),
+                  f"K6 bits != K4 bits unpacked at {h}x{w} ({cover})")
+            s6p, bpf6p, _ = sk.embed_and_extract_frames_rows_plain(*args)
+            bits6p = sk.rows_to_bits(sk.extract_frames_rows_plain(
+                s6, DELTA, NUM_AC), h, w, NUM_AC, stripe)
+            torch.cuda.synchronize()
+            check(torch.equal(bpf6, bpf6p), f"K6 bpf differ at {h}x{w}")
+            d = (s6.to(torch.int32) - s6p.to(torch.int32)).abs()
+            flips = (d > 1).double().mean().item()
+            errs["roundtrip_rows"] = max(errs["roundtrip_rows"], int(d.max()))
+            check(flips < STEGO_FLIP_BUDGET,
+                  f"K6 vs plain: {flips:.4%} of pixels differ by >1 at {h}x{w}")
+            outside = int(((bits6 != bits6p)
+                           & ~_near_boundary_t(s6, DELTA, NUM_AC)).sum())
+            check(outside == 0, f"K6 vs plain: {outside} bits outside the "
+                  f"envelope at {h}x{w} ({cover})")
+            valid = torch.arange(payload.numel(), device=dev).reshape(
+                payload.shape) < total
+            exact = None
+            if cover == "mid":
+                exact = torch.equal(bits6[valid], payload[valid])
+                check(exact, f"K6 payload not recovered at {h}x{w}")
+            print(f"phase 10 K6 {h}x{w} B=8 {cover}: stego == K1 stego, rows "
+                  "== K5(K6 stego), bits == K4 bits unpacked, byte for byte; "
+                  f"vs plain: bpf identical, >1 px {flips:.5%}, max |diff| "
+                  f"{int(d.max())}, bits within the envelope; payload exact "
+                  f"{exact}", flush=True)
+
+    for (h, w) in ((1080, 1920), (720, 1280)):
+        for cover in ("mid", "uniform"):
+            lo, hi = (16, 240) if cover == "mid" else (0, 256)
+            b, offset = 8, 4321
+            frames = torch.from_numpy(
+                rng.integers(lo, hi, (b, h, w), dtype=np.uint8)).to(dev)
+            cap = (h // 8) * (w // 8) * NUM_AC
+            total = offset + int(0.6 * b * cap)
+            payload = torch.from_numpy(
+                rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+            args = (frames, payload, total, DELTA, NUM_AC, offset)
+            s7, bpf7 = kk.embed_frames_kron(*args)
+            s7p, bpf7p = kk.embed_frames_kron_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(bpf7, bpf7p), f"K7 bpf differ at {h}x{w}")
+            d = (s7.to(torch.int32) - s7p.to(torch.int32)).abs()
+            flips = (d > 1).double().mean().item()
+            errs["kron_embed"] = max(errs["kron_embed"], int(d.max()))
+            check(flips < STEGO_FLIP_BUDGET,
+                  f"K7 vs plain: {flips:.4%} of pixels differ by >1 at {h}x{w}")
+            never = build_state_plane(payload, total, h, w, NUM_AC,
+                                      offset) == 3
+            check(bool(never.any()) and torch.equal(s7[never], frames[never]),
+                  f"K7: blocks never entered not passed through at {h}x{w}")
+            counts = []
+            for x in (frames, s7):
+                b8 = kk.extract_frames_kron(x, DELTA, NUM_AC)
+                diff = b8 != kk.extract_frames_kron_plain(x, DELTA, NUM_AC)
+                outside = int((diff & ~_near_boundary_t(x, DELTA, NUM_AC)).sum())
+                errs["kron_extract"] = max(errs["kron_extract"], int(outside > 0))
+                check(outside == 0, f"K8 vs plain: {outside} bits outside the "
+                      f"envelope at {h}x{w} ({cover})")
+                counts.append(int(diff.sum()))
+            n = total - offset
+            exact = None
+            if cover == "mid":
+                exact = torch.equal(b8.reshape(-1)[:n], payload.reshape(-1)[:n])
+                check(exact, f"K8 payload not recovered at {h}x{w}")
+            print(f"phase 10 K7/K8 {h}x{w} B=8 {cover}: bpf identical; >1 px "
+                  f"{flips:.5%}, max |diff| {int(d.max())}; "
+                  f"{int(never.sum())} px never entered byte-identical; K8 "
+                  f"bits differing from plain {counts[0]} (cover) "
+                  f"{counts[1]} (stego), all within the envelope; payload "
+                  f"exact {exact}", flush=True)
+
+    # the path of K6, K7 and K8: round trips scored by their metrics
+    frames, payload, total = _covers(dev, rng, 8, 1080, 1920, "mid")
+    args = (frames, payload, total, DELTA, NUM_AC)
+    _set_counts()
+    t0 = time.perf_counter()
+    s6, _, ex6 = sk.embed_and_extract_frames_fused(*args)
+    m6 = qim.roundtrip_metrics(frames, s6, ex6, payload, total)
+    s7, _, ex7 = kk.embed_and_extract_frames_kron(*args)
+    m7 = qim.roundtrip_metrics(frames, s7, ex7, payload, total)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"roundtrip_rows": sk.ROUNDTRIP_ROWS_LAUNCHES,
+                "kron_embed": kk.KRON_EMBED_LAUNCHES,
+                "kron_extract": kk.KRON_EXTRACT_LAUNCHES}
+    check(all(v > 0 for v in launches.values()),
+          f"the round trips did not launch K6, K7 and K8: {launches}")
+    _, bpf_o, _, m_o = qim.embed_extract_evaluate(*args)
+    for label, m in (("K6", m6), ("kron", m7), ("oracle", m_o)):
+        check(int(m["bit_errors"]) == 0 and int(m["payload_bits"]) == total,
+              f"{label} round trip: {int(m['bit_errors'])} bit errors, "
+              f"{int(m['payload_bits'])} payload bits of {total}")
+        check(m["psnr_db"].device == frames.device,
+              f"{label} metrics are not on the card")
+    check(int(bpf_o.sum()) == total, "oracle round trip: bits per frame")
+    a, s = frames[:1], s6[:1]
+    p_dev, p_host = float(psnr_batch(a, s)[0]), psnr_np(a[0].cpu().numpy(),
+                                                        s[0].cpu().numpy())
+    q_dev, q_host = float(ssim_batch(a, s)[0]), ssim_np(a[0].cpu().numpy(),
+                                                        s[0].cpu().numpy())
+    # f32 sums on the card against float64 on the host
+    check(abs(p_dev - p_host) < 1e-3 and abs(q_dev - q_host) < 1e-4,
+          f"device PSNR/SSIM {p_dev}/{q_dev} vs host {p_host}/{q_host}")
+    print(f"phase 10 path 1920x1080 B=8 mid: bit_errors K6 "
+          f"{int(m6['bit_errors'])} kron {int(m7['bit_errors'])} oracle "
+          f"{int(m_o['bit_errors'])} of {total} payload bits; psnr_db K6 "
+          f"{float(m6['psnr_db']):.4f} kron {float(m7['psnr_db']):.4f} oracle "
+          f"{float(m_o['psnr_db']):.4f}; frame 0 PSNR {p_dev:.6f} dB (host "
+          f"{p_host:.6f}) SSIM {q_dev:.7f} (host {q_host:.7f}); "
+          f"ROUNDTRIP_ROWS_LAUNCHES={launches['roundtrip_rows']} "
+          f"KRON_EMBED_LAUNCHES={launches['kron_embed']} "
+          f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']}; {seconds:.3f} s "
+          "host clock", flush=True)
+    return errs, launches
 
 
 if __name__ == "__main__":

@@ -12,6 +12,8 @@
 //    K1, then K2 on the quantized stego still in registers.
 // K5 qim_extract_rows_kernel replaces _extract_kernel (:545): K2 with one
 //    u8 per lane instead of one bit.
+// K6 qim_roundtrip_rows_kernel replaces _roundtrip_kernel (:785): K1, then
+//    K5 on the quantized stego still in registers.
 //
 // Design. One thread owns one 8x8 block: it loads the block as 8 rows of
 // 8 bytes (neighbouring threads hold neighbouring blocks of a block row,
@@ -23,11 +25,13 @@
 // and are gone: the payload is read in wire order (block n, slot j at
 // n*num_ac + j) and any width W % 8 == 0 works.
 //
-// All five kernels share one embed (embed_block) and one decode
+// All six kernels share one embed (embed_block) and one decode
 // (slot_bits), as the TPU kernels share _embed_core and _extract_bits_f32:
 // the exactness harness (ops/exactness.py) holds K3's and K4's stego
 // byte-identical to K1's, K4's bits and K3's count to K2 on their stego,
-// and K5 to K2, with zero tolerance. Every rounding in that arithmetic is
+// and K5 to K2, with zero tolerance; K6's stego is K1's and its rows are
+// K5's reading of that stego (chip_smoke.py phase 10, tests/
+// test_torch_cuda.py). Every rounding in that arithmetic is
 // explicit (fmaf, __fmul_rn, __fsub_rn), so nvcc's default FMA
 // contraction cannot round one inlined copy differently from another.
 //
@@ -35,7 +39,7 @@
 // (read + write; extract writes rn/64 B, K5 rn/8 B) plus num_ac/64 B of
 // payload per pixel for embed, against 2*rn FP32 FMAs per pixel for the
 // forward transform and as many again for the inverse (8 per pixel for
-// embed at the default num_ac=10; K3 and K4 add a second forward) — far
+// embed at the default num_ac=10; K3, K4 and K6 add a second forward) — far
 // under the FP32 rate for the bytes they move. No tensor cores are used,
 // so no TF32 can enter: the wire contract is IEEE f32 (scipy's DCT in the
 // reference). Build WITHOUT --use_fast_math: fast math turns y/delta into
@@ -357,6 +361,38 @@ qim_roundtrip_packed_kernel(const uint8_t* __restrict__ frames,
   write_packed<RN>(packed, byte, f, by, bx, h, bw, stripe_blocks, rows_pad);
 }
 
+template <int RN>
+__global__ void __launch_bounds__(kThreads)
+qim_roundtrip_rows_kernel(const uint8_t* __restrict__ frames,
+                          const uint8_t* __restrict__ payload,
+                          uint8_t* __restrict__ stego,
+                          uint8_t* __restrict__ rows,
+                          const float* __restrict__ dct, int h, int w,
+                          int num_ac, long long cap, long long total_bits,
+                          int stripe_blocks, int rows_pad, float delta) {
+  __shared__ float m[64];
+  load_dct(m, dct);
+
+  const int bw = w / 8;
+  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (bx >= bw) return;
+  const int by = blockIdx.y;
+  const int f = blockIdx.z;
+  const long long blk = static_cast<long long>(by) * bw + bx;
+  const long long rem = total_bits - f * cap - blk * num_ac;  // no bit offset
+  const size_t off = block_offset(f, by, bx, h, w);
+
+  uint2 raw[8];
+  load_rows(frames + off, w, raw);
+  if (rem > 0 && delta > 0.0f)
+    embed_block<RN>(raw, m, payload + f * cap + blk * num_ac, rem, num_ac, delta);
+  store_rows(stego + off, w, raw);
+  // re-extract from the quantized stego, still in registers
+  uint32_t byte[RN];
+  slot_bits<RN>(raw, m, delta, byte);
+  write_rows<RN>(rows, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
+}
+
 // errors: (B,) int32, zeroed by the caller on the launch stream. Blocks of
 // the GPU grid run in no order, so there is no sequential axis to carry a
 // sum along (the TPU kernel's stripe axis): each warp sums its threads'
@@ -512,6 +548,28 @@ int stegotpu_qim_roundtrip_packed(const void* frames, const void* payload,
       stripe / 8, rows_pad, delta)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_ROUNDTRIP)
 #undef STEGOTPU_ROUNDTRIP
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8; rows as for
+// stegotpu_qim_extract_rows. Global bit 0 is the payload's first bit.
+int stegotpu_qim_roundtrip_rows(const void* frames, const void* payload,
+                                void* stego, void* rows, const void* dct,
+                                int device, int b, int h, int w, int num_ac,
+                                long long total_bits, int stripe, int rows_pad,
+                                float delta, void* stream) {
+  const cudaError_t err = begin(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STEGOTPU_ROUNDTRIP_ROWS(RN)                                         \
+  qim_roundtrip_rows_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(      \
+      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
+      static_cast<uint8_t*>(stego), static_cast<uint8_t*>(rows),            \
+      static_cast<const float*>(dct), h, w, num_ac, cap, total_bits,        \
+      stripe / 8, rows_pad, delta)
+  STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_ROUNDTRIP_ROWS)
+#undef STEGOTPU_ROUNDTRIP_ROWS
   return static_cast<int>(cudaGetLastError());
 }
 

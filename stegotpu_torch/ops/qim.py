@@ -1,7 +1,9 @@
 """Batched DCT/QIM embed & extract by Kronecker matmul — the port's oracle.
 
 Counterpart of the JAX package's XLA kernel (``stegotpu/ops/qim.py:48-162``),
-selected by ``kernel='xla'``. It transforms every coefficient of every
+selected by ``kernel='xla'``, and of its round trip and quality metrics
+(``embed_and_extract_frames``, ``roundtrip_metrics``,
+``embed_extract_evaluate``, :165-234). It transforms every coefficient of every
 block in f32 (``torch.matmul`` at full float32: the port never enables
 TF32) and keeps the semantics listed at stegotpu/ops/qim.py:9-25:
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from stegotpu_torch.config import BLOCK
+from stegotpu_torch.metrics import psnr
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 
 
@@ -101,3 +104,51 @@ def extract_frames(frames: torch.Tensor, delta: float,
                            device=frames.device)
     bits = torch.remainder(torch.round(ac / delta), 2.0).to(torch.uint8)
     return bits.reshape(b, -1)
+
+
+def embed_and_extract_frames(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The oracle's round trip, embed then re-extract from the stego:
+    (stego, bits per frame, extracted (B, C)) on the frames' device
+    (stegotpu/ops/qim.py:216-234)."""
+    stego, bits_per_frame = embed_frames(frames, payload_bits, total_bits,
+                                         delta, num_ac)
+    return stego, bits_per_frame, extract_frames(stego, delta, num_ac)
+
+
+def roundtrip_metrics(frames: torch.Tensor, stego: torch.Tensor,
+                      extracted: torch.Tensor, payload_bits: torch.Tensor,
+                      total_bits: int) -> dict[str, torch.Tensor]:
+    """Quality metrics of an embed/extract round trip, as 0-dim tensors on
+    the frames' device: {psnr_db, bit_errors, payload_bits}
+    (stegotpu/ops/qim.py:165-189). Bit errors count payload-carrying slots
+    only: slot i of frame f is valid iff i < total_bits - f*C (the
+    remaining-bits threshold form)."""
+    b, cap = payload_bits.shape
+    dev = payload_bits.device
+    rem = int(total_bits) - torch.arange(b, dtype=torch.int64,
+                                         device=dev)[:, None] * cap
+    valid = torch.arange(cap, dtype=torch.int64, device=dev) < rem
+    return {
+        "psnr_db": psnr(frames, stego),
+        "bit_errors": (valid & (extracted != payload_bits)).sum(),
+        "payload_bits": torch.tensor(min(int(total_bits), b * cap),
+                                     dtype=torch.int64, device=dev),
+    }
+
+
+def embed_extract_evaluate(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """The streaming-evaluation step: the oracle's round trip and its
+    metrics, all on the frames' device — (stego, bits per frame, extracted,
+    metrics) (stegotpu/ops/qim.py:192-213). Per-frame SSIM is
+    metrics.ssim_batch, as in the JAX package."""
+    stego, bits_per_frame, extracted = embed_and_extract_frames(
+        frames, payload_bits, total_bits, delta, num_ac)
+    metrics = roundtrip_metrics(frames, stego, extracted, payload_bits,
+                                total_bits)
+    return stego, bits_per_frame, extracted, metrics

@@ -1,6 +1,6 @@
 """The QIM/DCT stripe kernels: embed, extract, and their fused forms.
 
-Counterpart of ``stegotpu/ops/pallas_kernel.py``. Five kernels, each a
+Counterpart of ``stegotpu/ops/pallas_kernel.py``. Six kernels, each a
 hand-written CUDA C++ kernel for Hopper (csrc/qim_stripe.cu, built and
 bound by ops/_build.py) with its plain PyTorch version beside it:
 
@@ -15,13 +15,17 @@ bound by ops/_build.py) with its plain PyTorch version beside it:
   ``_roundtrip_kernel_packed`` (pallas_kernel.py:804); plain version
   ``embed_and_extract_frames_packed_plain``;
 - K5 ``extract_frames_rows`` replaces ``_extract_kernel``
-  (pallas_kernel.py:545); plain version ``extract_frames_rows_plain``.
+  (pallas_kernel.py:545); plain version ``extract_frames_rows_plain``;
+- K6 ``embed_and_extract_frames_rows`` replaces ``_roundtrip_kernel``
+  (pallas_kernel.py:785), the unpacked fused round trip; plain version
+  ``embed_and_extract_frames_rows_plain``.
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
 no fallback. ``EMBED_LAUNCHES``, ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``,
-``ROUNDTRIP_LAUNCHES`` and ``EXTRACT_ROWS_LAUNCHES`` count the kernel
-launches (and nothing else), so a run can show that it went through them.
+``ROUNDTRIP_LAUNCHES``, ``EXTRACT_ROWS_LAUNCHES`` and
+``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel launches (and nothing else),
+so a run can show that it went through them.
 
 The plain versions compute the same sparse-delta form in f32: blockify,
 ``xb @ K^T`` on the slot columns of the Kronecker DCT matrix K, the QIM
@@ -30,8 +34,9 @@ delta on valid slots, then ``x + dy @ K[slots]``. Semantics are those of
 round-half-even, directional parity, lattice snap, mid-block stop,
 passthrough of blocks never entered, truncating u8 cast. The fused plain
 versions are K1's and K2's plain versions run one after the other, so
-they hold the same identities as the kernels: K3's and K4's stego is K1's,
-K4's bits and K3's count are K2's reading of that stego.
+they hold the same identities as the kernels: K3's, K4's and K6's stego
+is K1's, K4's bits and K3's count are K2's reading of that stego, and
+K6's rows are K5's.
 
 K2 and K4 keep the TPU kernels' packed compact-rows output layout as their
 interface, (B, (H/stripe)*rows_pad, W/8) u8: byte (f, jg*rp + i*rn + g, bx)
@@ -40,8 +45,8 @@ sublane-pad rows are 0. K5 writes the same rows unpacked, (B,
 (H/stripe)*rows_pad, W) u8 with bit s of that byte in lane 8*bx + s. So
 ``packed_rows_to_bits_host`` and the pipeline's ``_PackedBitBuf`` carry
 over unchanged; the layout helpers below mirror pallas_kernel.py:75-134 and
-:198-281 exactly. K3 and K4 have no bit offset: global bit 0 is the
-payload's first bit, as in the TPU kernels.
+:198-281 exactly. K6 writes K5's layout. K3, K4 and K6 have no bit offset:
+global bit 0 is the payload's first bit, as in the TPU kernels.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ EXTRACT_LAUNCHES = 0
 CHECK_LAUNCHES = 0
 ROUNDTRIP_LAUNCHES = 0
 EXTRACT_ROWS_LAUNCHES = 0
+ROUNDTRIP_ROWS_LAUNCHES = 0
 
 
 # --- layout helpers (numpy/int, mirrors of pallas_kernel.py) -----------------
@@ -276,6 +282,29 @@ def embed_and_extract_frames_packed_plain(
     stego, bpf = embed_frames_plain(frames, payload_bits, total_bits, delta,
                                     num_ac)
     return stego, bpf, extract_frames_packed_plain(stego, delta, num_ac)
+
+
+def embed_and_extract_frames_rows_plain(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6: K1's plain embed, then K5's plain
+    extract of its stego."""
+    stego, bpf = embed_frames_plain(frames, payload_bits, total_bits, delta,
+                                    num_ac)
+    return stego, bpf, extract_frames_rows_plain(stego, delta, num_ac)
+
+
+def embed_and_extract_frames_fused_plain(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's plain version, then the wire-order unpack: (stego, bits per
+    frame, extracted (B, C))."""
+    _, h, w = frames.shape
+    stego, bpf, rows = embed_and_extract_frames_rows_plain(
+        frames, payload_bits, total_bits, delta, num_ac)
+    return stego, bpf, rows_to_bits(rows, h, w, num_ac, pick_stripe(h))
 
 
 def embed_and_check_frames_plain(
@@ -509,3 +538,56 @@ def embed_and_check_frames(
         CHECK_LAUNCHES += 1
     return stego, _bits_per_frame(b, cap, int(total_bits), 0,
                                   frames.device), errors
+
+
+def embed_and_extract_frames_rows(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: embed, then re-extract the quantized stego in the same pass into
+    the unpacked compact rows. Returns (stego (B, H, W) uint8, bits per
+    frame (B,) int32, rows (B, (H/stripe)*rows_pad, W) uint8 in K5's
+    layout), on the frames' device. Global bit 0 is the payload's first bit
+    (no bit offset)."""
+    global ROUNDTRIP_ROWS_LAUNCHES
+    b, h, w = _check_frames(frames)
+    cap = _check_payload(payload_bits, frames, num_ac)
+    if frames.device.type == "cpu":
+        return embed_and_extract_frames_rows_plain(
+            frames, payload_bits, total_bits, delta, num_ac)
+    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w)
+    stego = torch.empty_like(frames)
+    rows = torch.empty(shape, dtype=torch.uint8, device=frames.device)
+    if stego.numel():
+        dev = frames.device
+        _launch("stegotpu_qim_roundtrip_rows", frames.data_ptr(),
+                payload_bits.data_ptr(), stego.data_ptr(), rows.data_ptr(),
+                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                int(total_bits), stripe, rp, float(delta), _stream(dev))
+        ROUNDTRIP_ROWS_LAUNCHES += 1
+    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
+                                  frames.device), rows
+
+
+def embed_and_extract_frames_fused(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 then the wire-order unpack on the same device: (stego, bits per
+    frame, extracted (B, C) uint8), the counterpart of
+    pallas_kernel.embed_and_extract_frames_pallas_fused (:1049)."""
+    _, h, w = _check_frames(frames)
+    stego, bpf, rows = embed_and_extract_frames_rows(
+        frames, payload_bits, total_bits, delta, num_ac)
+    return stego, bpf, rows_to_bits(rows, h, w, num_ac, pick_stripe(h))
+
+
+def embed_and_extract_frames_twokernel(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The round trip as two kernels: K1, then K2 and the wire-order
+    unpack of its stego — the counterpart of
+    pallas_kernel.embed_and_extract_frames_pallas_twokernel (:1040)."""
+    stego, bpf = embed_frames(frames, payload_bits, total_bits, delta, num_ac)
+    return stego, bpf, extract_frames(stego, delta, num_ac)

@@ -38,9 +38,10 @@ GOLDEN = REPO / "tests" / "golden"
 
 def test_import_needs_only_torch_numpy_scipy():
     """Importing the pipeline, every kernel module, the verified embed, the
-    exactness harness, the fixtures and the GPU check tool succeeds with
-    jax, stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax
-    module behind."""
+    exactness harness, the fixtures, the GPU check tool, the metrics, the
+    evaluation suite and the experimental kernels succeeds with jax,
+    stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax module
+    behind."""
     code = """
 import sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
@@ -52,6 +53,10 @@ sys.meta_path.insert(0, Block())
 import stegotpu_torch.pipeline, stegotpu_torch.ops.stripe_kernel
 import stegotpu_torch.ops.verified, stegotpu_torch.ops.exactness
 import stegotpu_torch.fixtures, stegotpu_torch.gpucheck
+import stegotpu_torch.metrics, stegotpu_torch.evaluation
+import stegotpu_torch.ops.experimental.qim_fast
+import stegotpu_torch.ops.experimental.kron_kernel
+import stegotpu_torch.ops._build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in BLOCKED or m.startswith("jax"))
 assert not bad, bad

@@ -6,8 +6,9 @@ PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels from stegotpu_torch/csrc (one nvcc per
-source, all started together) and runs ten phases:
+It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
+all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
+study kernels K9-K12 in qim_study.cu) and runs eleven phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -30,14 +31,25 @@ source, all started together) and runs ten phases:
      and extract) against their plain versions; then the path of the three
      kernels: the fused and the Kronecker round trips at 1080p with their
      quality metrics (ops/qim.roundtrip_metrics), the oracle's
-     embed_extract_evaluate, and the device PSNR/SSIM against the host's.
+     embed_extract_evaluate, and the device PSNR/SSIM against the host's;
+11.  the study kernels (stegotpu_torch/studies): K9 (the extract with
+     stages removed, one entry per variant), K10 (embed from a bit-packed
+     payload), K11 (two-chain fused round trip) and K12 (copy, dmaspec)
+     against K5, K1, K4, the frames and payload_to_rows_packed with zero
+     tolerance and against their plain versions; their times; then the path
+     of the four kernels: every study's main at 1080p, and one roofline
+     pass at B=128 (a working set far beyond the 50 MB L2).
 
 Every phase prints; any failure exits non-zero. The line before the last
 is a JSON object with each kernel's route, source, launches on its path,
 error and times: "ms"/"plain_ms" the median CUDA-event time of one call
 (host time where the host side outlasts the device work),
 "device_ms"/"plain_device_ms" the device time per call with the host
-queued ahead. The last line is {"ok": true, "device": {...}}.
+queued ahead, "bound_ms"/"bound_by" the least time an H100 SXM could take
+for the call at the published peaks (studies/bounds.py), "library_ms" the
+time of the one PyTorch call that computes the same function, where there
+is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
+{"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
@@ -48,10 +60,10 @@ file-to-file phase).
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import json
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -71,6 +83,10 @@ TOL_REL = 2e-5
 STEGO_FLIP_BUDGET = 0.01
 DELTA = 20.0
 NUM_AC = 10
+# the timed calls of phases 4 and 11 rotate over input sets that together
+# hold at least this many bytes, five times the H100's 50 MB L2, so that
+# each call reads its inputs from HBM, as a stream of new frames does
+COLD_BYTES = 256 << 20
 
 
 class SmokeFailure(Exception):
@@ -83,26 +99,35 @@ def check(cond: bool, msg: str) -> None:
 
 
 def _gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    from stegotpu_torch.studies.harness import gpu_line
+
+    return gpu_line()
+
+
+ABLATIONS = ("full", "no_qim", "no_horiz", "io_only", "io_f4", "full_notrunc")
 
 
 def _ptxas_summary(log: str) -> str:
     """Registers and spill-store bytes of every kernel from nvcc's
     -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...' for the stripe
-    kernels, the instantiation of the default num_ac=10 (rn=2) and the
-    largest over rn=1..8; 'kron_embed:64r/0s' for the Kronecker kernels,
-    which have one instantiation."""
+    and study kernels, the instantiation of the default num_ac=10 (rn=2,
+    or the only rn a kernel has) and the largest over rn=1..8, with one
+    entry per K9 variant ('ablation_no_qim<2>:...'); 'kron_embed:64r/0s'
+    and 'copy:16r/0s' for the kernels with one instantiation."""
     per: dict[str, dict[int, tuple[int, int]]] = {}
     name, rn, spill = None, 0, 0
     for line in log.splitlines():
-        m = re.search(r"\d(?:qim_([a-z_]+)_kernelILi(\d)E|(kron_[a-z]+)_kernelE)",
-                      line)
+        m = re.search(r"\d(qim_[a-z_]+|kron_[a-z]+|copy)_kernel"
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
         if m and "Compiling entry" in line:
-            name = m.group(1) or m.group(3)
-            rn, spill = int(m.group(2) or 0), 0
+            kind, a1, a2 = m.groups()
+            spill = 0
+            if kind == "copy":  # copy_kernel<V>: V is the variant
+                name, rn = ("copy", "dmaspec")[int(a1)], 0
+            elif a2 is not None:  # qim_ablation_kernel<RN, V>
+                name, rn = f"ablation_{ABLATIONS[int(a2)]}", int(a1)
+            else:
+                name, rn = kind.removeprefix("qim_"), int(a1 or 0)
         m2 = re.search(r"(\d+) bytes spill stores", line)
         if m2 and name:
             spill = int(m2.group(1))
@@ -115,28 +140,31 @@ def _ptxas_summary(log: str) -> str:
         if set(by_rn) == {0}:
             out.append(f"{kernel}:{by_rn[0][0]}r/{by_rn[0][1]}s")
             continue
-        r2, s2 = by_rn.get(2, (-1, -1))
-        out.append(f"{kernel}<2>:{r2}r/{s2}s(max "
+        rn = 2 if 2 in by_rn else min(by_rn)
+        r2, s2 = by_rn[rn]
+        out.append(f"{kernel}<{rn}>:{r2}r/{s2}s(max "
                    f"{max(r for r, _ in by_rn.values())}r/"
                    f"{max(s for _, s in by_rn.values())}s)")
     return " ".join(out)
 
 
-def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, over `runs` calls after warm-up.
-    The events bracket the host's work too: where a call's host side (the
-    wrapper's checks, the launch, its small torch ops) outlasts its device
-    work, the device waits and this is host time."""
+    `fns` is a callable or a list of them, one per input set, called in
+    turn. The events bracket the host's work too: where a call's host side
+    (the wrapper's checks, the launch, its small torch ops) outlasts its
+    device work, the device waits and this is host time."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fns = fns if isinstance(fns, list) else [fns]
+    for i in range(warmup):
+        fns[i % len(fns)]()
     times = []
-    for _ in range(runs):
+    for i in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fns[i % len(fns)]()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -144,24 +172,27 @@ def _time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _queued_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Device time of one call: the mean over `runs` calls that the host
-    queued while the stream was held by a sleep kernel, so they run back to
-    back (a wrapper's small torch ops count, the host's time does not)."""
-    import torch
+def _queued_ms(fns, runs: int = 20, warmup: int = 3) -> float:
+    """Device time of one call, queued behind a sleep kernel, rotating over
+    the input sets of `fns` (studies/harness.queued_ms)."""
+    from stegotpu_torch.studies.harness import queued_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)  # about 0.1 s: the host queues every call
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
+    return queued_ms(fns, runs, warmup)
+
+
+def _cold_sets(dev, rng) -> list:
+    """(frames, payload, total) sets at 1920x1080, B=8, mid-range covers
+    (_covers), enough of them to hold COLD_BYTES of frames and payload."""
+    b, h, w = 8, 1080, 1920
+    per_set = b * h * w + b * (h // 8) * (w // 8) * NUM_AC
+    return [_covers(dev, rng, b, h, w, "mid")
+            for _ in range(-(-COLD_BYTES // per_set))]
+
+
+def _per_set(fn, sets) -> list:
+    """fn bound to each input set: the list that _time_ms and _queued_ms
+    rotate over."""
+    return [functools.partial(fn, *s) for s in sets]
 
 
 COUNTERS = {
@@ -169,14 +200,23 @@ COUNTERS = {
                       "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
                       "ROUNDTRIP_ROWS_LAUNCHES"),
     "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
+    "extract_ablation": tuple(f"{v.upper()}_LAUNCHES" for v in ABLATIONS),
+    "ab_packed_payload": ("PACKEDIN_LAUNCHES",),
+    "dualchain_r5": ("DUAL_LAUNCHES",),
+    "roofline_r4": ("COPY_LAUNCHES", "DMASPEC_LAUNCHES"),
 }
 
 
 def _counter_modules():
     from stegotpu_torch.ops import stripe_kernel
     from stegotpu_torch.ops.experimental import kron_kernel
+    from stegotpu_torch.studies import (ab_packed_payload, dualchain_r5,
+                                        extract_ablation, roofline_r4)
 
-    return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel}
+    return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel,
+            "extract_ablation": extract_ablation,
+            "ab_packed_payload": ab_packed_payload,
+            "dualchain_r5": dualchain_r5, "roofline_r4": roofline_r4}
 
 
 def _counts() -> dict[str, int]:
@@ -363,47 +403,46 @@ def main() -> int:
           flush=True)
     del stego, out
 
-    # phase 4: kernel and plain times at 1920x1080, B=8
-    b, h, w = 8, 1080, 1920
-    frames = torch.from_numpy(
-        rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
-    cap = (h // 8) * (w // 8) * NUM_AC
-    payload = torch.from_numpy(
-        rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
-    total = b * cap
+    # phase 4: kernel and plain times at 1920x1080, B=8, inputs from HBM
+    sets = _cold_sets(dev, rng)
     counts = _counts()
-    args = (frames, payload, total, DELTA, NUM_AC)
+
+    def embed_args(fn):
+        return lambda f, p, t: fn(f, p, t, DELTA, NUM_AC)
+
+    def extract_args(fn):
+        return lambda f, p, t: fn(f, DELTA, NUM_AC)
+
     calls = {
-        "embed": lambda: sk.embed_frames(*args),
-        "embed_plain": lambda: sk.embed_frames_plain(*args),
-        "extract_packed": lambda: sk.extract_frames_packed(frames, DELTA,
-                                                           NUM_AC),
-        "extract_packed_plain": lambda: sk.extract_frames_packed_plain(
-            frames, DELTA, NUM_AC),
-        "embed_check": lambda: sk.embed_and_check_frames(*args),
-        "embed_check_plain": lambda: sk.embed_and_check_frames_plain(*args),
-        "roundtrip_packed": lambda: sk.embed_and_extract_frames_packed(*args),
+        "embed": embed_args(sk.embed_frames),
+        "embed_plain": embed_args(sk.embed_frames_plain),
+        "extract_packed": extract_args(sk.extract_frames_packed),
+        "extract_packed_plain": extract_args(sk.extract_frames_packed_plain),
+        "embed_check": embed_args(sk.embed_and_check_frames),
+        "embed_check_plain": embed_args(sk.embed_and_check_frames_plain),
+        "roundtrip_packed": embed_args(sk.embed_and_extract_frames_packed),
         "roundtrip_packed_plain":
-            lambda: sk.embed_and_extract_frames_packed_plain(*args),
-        "extract_rows": lambda: sk.extract_frames_rows(frames, DELTA, NUM_AC),
-        "extract_rows_plain": lambda: sk.extract_frames_rows_plain(
-            frames, DELTA, NUM_AC),
-        "roundtrip_rows": lambda: sk.embed_and_extract_frames_rows(*args),
+            embed_args(sk.embed_and_extract_frames_packed_plain),
+        "extract_rows": extract_args(sk.extract_frames_rows),
+        "extract_rows_plain": extract_args(sk.extract_frames_rows_plain),
+        "roundtrip_rows": embed_args(sk.embed_and_extract_frames_rows),
         "roundtrip_rows_plain":
-            lambda: sk.embed_and_extract_frames_rows_plain(*args),
-        "kron_embed": lambda: kk.embed_frames_kron(*args),
-        "kron_embed_plain": lambda: kk.embed_frames_kron_plain(*args),
-        "kron_extract": lambda: kk.extract_frames_kron(frames, DELTA, NUM_AC),
-        "kron_extract_plain": lambda: kk.extract_frames_kron_plain(
-            frames, DELTA, NUM_AC),
+            embed_args(sk.embed_and_extract_frames_rows_plain),
+        "kron_embed": embed_args(kk.embed_frames_kron),
+        "kron_embed_plain": embed_args(kk.embed_frames_kron_plain),
+        "kron_extract": extract_args(kk.extract_frames_kron),
+        "kron_extract_plain": extract_args(kk.extract_frames_kron_plain),
     }
-    times = {k: _time_ms(fn) for k, fn in calls.items()}
-    queued = {k: _queued_ms(fn) for k, fn in calls.items()}
+    times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
     _set_counts(counts)  # timing is not a path's run
-    print(f"phase 4 times 1920x1080 B=8 (median of 20 CUDA-event runs, {gpu}): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+    cold = (f"rotating over {len(sets)} input sets of "
+            f"{sum(f.numel() + p.numel() for f, p, _ in sets) >> 20} MiB")
+    print(f"phase 4 times 1920x1080 B=8 (median of 20 CUDA-event runs, {cold}, "
+          f"{gpu}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
+          flush=True)
     print(f"phase 4 device times 1920x1080 B=8 (mean of 20 calls queued "
-          f"behind a sleep kernel, {gpu}): "
+          f"behind a sleep kernel, {cold}, {gpu}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items()), flush=True)
 
     # phase 5: file to file, where the host libraries are installed
@@ -431,24 +470,50 @@ def main() -> int:
     errs10, launches10 = _variants_and_metrics(dev, rng)      # phase 10
     errs.update(errs10)
     launches.update(launches10)
+    errs11, launches11, times11, queued11, library = _studies(dev, rng, gpu,
+                                                              sets)
+    del sets
+    errs.update(errs11)                                       # phase 11
+    launches.update(launches11)
+    times.update(times11)
+    queued.update(queued11)
+
+    from stegotpu_torch.studies import bounds
 
     stripe = ("stegotpu_torch/csrc/qim_stripe.cu", "stegotpu/ops/pallas_kernel.py")
     kron = ("stegotpu_torch/csrc/qim_kron.cu",
             "stegotpu/ops/experimental/pallas_kron.py")
+    study = "stegotpu_torch/csrc/qim_study.cu"
     replaces = {"embed": (stripe, 529), "extract_packed": (stripe, 577),
                 "embed_check": (stripe, 906), "roundtrip_packed": (stripe, 804),
                 "extract_rows": (stripe, 545), "roundtrip_rows": (stripe, 785),
-                "kron_embed": (kron, 58), "kron_extract": (kron, 80)}
+                "kron_embed": (kron, 58), "kron_extract": (kron, 80),
+                **{f"ablation_{v}": ((study, "benchmarks/extract_ablation.py"),
+                                     92 if v == "io_f4" else 61)
+                   for v in ABLATIONS},
+                "embed_packedin": ((study, "benchmarks/ab_packed_payload.py"),
+                                   111),
+                "roundtrip_dual": ((study, "benchmarks/dualchain_r5.py"), 91),
+                "copy": ((study, "benchmarks/roofline_r4.py"), 91),
+                "dmaspec": ((study, "benchmarks/roofline_r4.py"), 149)}
     errs.update(embed=embed_err, extract_packed=extract_err)
-    kernels = [
-        {"name": k, "route": "cuda", "source": source,
-         "replaces": f"{tpu_file}:{line}",
-         "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k], "plain_ms": times[f"{k}_plain"],
-         "device_ms": queued[k], "plain_device_ms": queued[f"{k}_plain"]}
-        for k, ((source, tpu_file), line) in replaces.items()]
+    kernels = []
+    for k, ((source, tpu_file), line) in replaces.items():
+        # the least time for this run's inputs: phase 4's and phase 11's
+        # timed calls, 1920x1080, B=8, num_ac=10, every block entered
+        bound, bound_by = bounds.bound_ms(*bounds.work(
+            k, 8, 1080, 1920, NUM_AC, sk.pick_stripe(1080)))
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": f"{tpu_file}:{line}",
+            "launches": launches[k], "max_abs_err": errs[k],
+            "ms": times[k], "plain_ms": times[f"{k}_plain"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library.get(k),
+            "device_ms": queued[k], "plain_device_ms": queued[f"{k}_plain"]})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
+    print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -957,6 +1022,281 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
           f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']}; {seconds:.3f} s "
           "host clock", flush=True)
     return errs, launches
+
+
+def _ablation_near(frames, delta: float, num_ac: int, stripe: int):
+    """K9's tolerance masks in K5's layout, from float64 coefficients of
+    the frames on their device: (near a rounding boundary of round(t/delta)
+    for the vertical coefficients t of no_horiz, near an integer for the
+    slot-row coefficients y of no_qim), each within the exactness
+    envelope."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops.dct import blockify, dct_matrix
+    from stegotpu_torch.studies.extract_ablation import _lanes_to_rows
+
+    b, h, w = frames.shape
+    rn = num_ac // 8 + 1
+    m = torch.tensor(dct_matrix(8, np.float64), device=frames.device)
+    t = m[:rn] @ blockify(frames.to(torch.float64)).reshape(b, -1, 8, 8)
+    y = t @ m.T
+    r = t / delta
+    near_t = (r - torch.floor(r) - 0.5).abs() * delta <= TOL_ABS + TOL_REL * t.abs()
+    near_y = (y - torch.round(y)).abs() <= TOL_ABS + TOL_REL * y.abs()
+    return tuple(_lanes_to_rows(x.to(torch.uint8), h, w, stripe).bool()
+                 for x in (near_t, near_y))
+
+
+def _run_main(label: str, main, argv: list[str], rc_want: int = 0
+              ) -> list[dict]:
+    """Run a study's main(argv), capturing its standard output; it must
+    exit `rc_want` and print JSON rows, one to a line. Returns the rows."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    try:
+        rows = [json.loads(ln) for ln in lines]
+    except json.JSONDecodeError as e:
+        raise SmokeFailure(f"{label}: a row does not parse: {e}: {lines}")
+    check(rc == rc_want and len(rows) >= 2
+          and all(isinstance(r, dict) for r in rows),
+          f"{label} exited {rc} with rows {rows}")
+    for row in rows:
+        print(f"phase 11 {label} ({' '.join(argv)}) row: {json.dumps(row)}",
+              flush=True)
+    print(f"phase 11 {label}: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s host clock", flush=True)
+    return rows
+
+
+def _studies(dev, rng, gpu: str, sets: list):
+    """Phase 11: the study kernels K9-K12 (stegotpu_torch.studies).
+
+    At 1920x1080 and 1360x768, B=8, on the mid and uniform covers, the
+    zero-tolerance identities K9 full == K5, K10 == K1, K11 == K4 (stego,
+    bits per frame, packed), K12 copy == frames and dmaspec's packed ==
+    payload_to_rows_packed, and every kernel against its plain version:
+    full, full_notrunc and K11's bits within the exactness envelope,
+    no_horiz's bits within it on the vertical coefficients, no_qim's bytes
+    equal or off by 1 (mod 256) where the coefficient lies within the
+    envelope of an integer, io_only, io_f4, copy and dmaspec equal, and
+    K10's and K11's stego within the flip budget. Then each kernel's time
+    and its plain version's at 1920x1080, B=8, with Tensor.copy_ beside
+    K12 copy, rotating over phase 4's input `sets`. Then the path: every study's main at 1080p with a small
+    batch and iteration count, and one roofline pass at B=128, with the
+    launch counters set to 0 before and read after.
+
+    Returns (max_abs_err, launches on the path, per-call ms, queued ms,
+    library ms) by kernel name."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
+                                        dualchain_r5, extract_ablation,
+                                        roofline_r4)
+
+    ea, ab, dc, rr = extract_ablation, ab_packed_payload, dualchain_r5, \
+        roofline_r4
+    names = [f"ablation_{v}" for v in ABLATIONS] + [
+        "embed_packedin", "roundtrip_dual", "copy", "dmaspec"]
+    errs = dict.fromkeys(names, 0)
+    rn = sk.rows_per_block(NUM_AC)
+    for (h, w) in ((1080, 1920), (768, 1360)):
+        for cover in ("mid", "uniform"):
+            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            args = (frames, payload, total, DELTA, NUM_AC)
+            stripe = sk.pick_stripe(h)
+            rp = sk._rows_pad(stripe, rn)
+            pad = torch.arange(rp * (h // stripe), device=dev) % rp >= \
+                (stripe // 8) * rn
+
+            # K9 against K5 and against its plain version
+            x32 = frames.to(torch.float32)
+            out = {v: ea.ablate(x32 if v == "full_notrunc" else frames, DELTA,
+                                NUM_AC, v) for v in ABLATIONS}
+            check(torch.equal(out["full"], sk.extract_frames_rows(
+                frames, DELTA, NUM_AC)), f"K9 full != K5 at {h}x{w} ({cover})")
+            check(torch.equal(out["full_notrunc"], out["full"]),
+                  f"K9 full_notrunc != full at {h}x{w} ({cover})")
+            near_t, near_y = _ablation_near(frames, DELTA, NUM_AC, stripe)
+            near_slot = _near_boundary_t(frames, DELTA, NUM_AC)
+            notes = []
+            for v in ABLATIONS:
+                got = out[v]
+                want = ea.ablate_plain(x32 if v == "full_notrunc" else frames,
+                                       DELTA, NUM_AC, v)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape, f"K9 {v} shape {got.shape}")
+                if v.startswith("io"):
+                    check(torch.equal(got, want), f"K9 {v} != plain at {h}x{w}")
+                    notes.append(f"{v} equal")
+                    continue
+                check(not got[:, pad].any().item(),
+                      f"K9 {v} padding rows not zero")
+                if v in ("full", "full_notrunc"):
+                    diff = (sk.rows_to_bits(got, h, w, NUM_AC, stripe)
+                            != sk.rows_to_bits(want, h, w, NUM_AC, stripe))
+                    outside = int((diff & ~near_slot).sum())
+                    errs[f"ablation_{v}"] = max(errs[f"ablation_{v}"],
+                                                int(outside > 0))
+                elif v == "no_horiz":
+                    diff = got != want
+                    outside = int((diff & ~near_t).sum())
+                    errs["ablation_no_horiz"] = max(errs["ablation_no_horiz"],
+                                                    int(outside > 0))
+                else:  # no_qim: the truncating cast steps at integers
+                    step = (got.to(torch.int32) - want.to(torch.int32)) % 256
+                    diff = step != 0
+                    outside = int((diff & ~near_y).sum()) + int(
+                        (diff & (step != 1) & (step != 255)).sum())
+                    if diff.any():
+                        errs["ablation_no_qim"] = max(
+                            errs["ablation_no_qim"], 1)
+                check(outside == 0, f"K9 {v} vs plain: {outside} lanes outside "
+                      f"the tolerance at {h}x{w} ({cover})")
+                notes.append(f"{v} {int(diff.sum())} differ, all inside")
+            del out, x32
+
+            # K10 against K1 and its plain version
+            packed = sk.payload_to_rows_packed(payload, h, w, NUM_AC, stripe)
+            s1, bpf1 = sk.embed_frames(*args)
+            s10, bpf10 = ab.embed_frames_packedin(frames, packed, total, DELTA,
+                                                  NUM_AC)
+            check(torch.equal(s10, s1) and torch.equal(bpf10, bpf1),
+                  f"K10 != K1 at {h}x{w} ({cover})")
+            s10p, bpf10p = ab.embed_frames_packedin_plain(frames, packed,
+                                                          total, DELTA, NUM_AC)
+            torch.cuda.synchronize()
+            d10 = (s10.to(torch.int32) - s10p.to(torch.int32)).abs()
+            flips10 = (d10 > 1).double().mean().item()
+            errs["embed_packedin"] = max(errs["embed_packedin"], int(d10.max()))
+            check(torch.equal(bpf10, bpf10p) and flips10 < STEGO_FLIP_BUDGET,
+                  f"K10 vs plain: {flips10:.4%} px differ by >1 at {h}x{w}")
+
+            # K11 against K4 and its plain version
+            s4, bpf4, p4 = sk.embed_and_extract_frames_packed(*args)
+            s11, bpf11, p11 = dc.dual_roundtrip_packed(*args)
+            check(torch.equal(s11, s4) and torch.equal(bpf11, bpf4)
+                  and torch.equal(p11, p4), f"K11 != K4 at {h}x{w} ({cover})")
+            s11p, bpf11p, _ = dc.dual_roundtrip_packed_plain(*args)
+            torch.cuda.synchronize()
+            d11 = (s11.to(torch.int32) - s11p.to(torch.int32)).abs()
+            flips11 = (d11 > 1).double().mean().item()
+            errs["roundtrip_dual"] = max(errs["roundtrip_dual"], int(d11.max()))
+            check(torch.equal(bpf11, bpf11p) and flips11 < STEGO_FLIP_BUDGET,
+                  f"K11 vs plain: {flips11:.4%} px differ by >1 at {h}x{w}")
+            out11 = int(((_wire(sk, p11, h) != _wire(
+                sk, sk.extract_frames_packed_plain(s11, DELTA, NUM_AC), h))
+                & ~_near_boundary_t(s11, DELTA, NUM_AC)).sum())
+            check(out11 == 0, f"K11 vs plain: {out11} bits outside the "
+                  f"envelope at {h}x{w} ({cover})")
+
+            # K12 against the frames, the packed payload and its plain version
+            c = rr.copy_frames(frames)
+            sd, pd = rr.dmaspec(frames, payload, NUM_AC)
+            sdp, pdp = rr.dmaspec_plain(frames, payload, NUM_AC)
+            torch.cuda.synchronize()
+            check(torch.equal(c, frames) and torch.equal(c, rr.copy_frames_plain(
+                frames)), f"K12 copy != frames at {h}x{w}")
+            check(torch.equal(sd, frames) and torch.equal(pd, packed)
+                  and torch.equal(sd, sdp) and torch.equal(pd, pdp),
+                  f"K12 dmaspec != (frames, payload_to_rows_packed) at {h}x{w}")
+            print(f"phase 11 K9-K12 {h}x{w} B=8 {cover}: K9 full == K5 and "
+                  "full_notrunc == full byte for byte; vs plain: "
+                  + ", ".join(notes) + "; K10 == K1 (stego, bpf) byte for "
+                  f"byte, vs plain >1 px {flips10:.5%} max |diff| "
+                  f"{int(d10.max())}; K11 == K4 (stego, bpf, packed) byte for "
+                  f"byte, vs plain >1 px {flips11:.5%}, bits within the "
+                  "envelope; K12 copy == frames, dmaspec == (frames, "
+                  "payload_to_rows_packed)", flush=True)
+
+    # times at 1920x1080, B=8, rotating over phase 4's input sets, so
+    # that each call reads its inputs from HBM: not a path's run
+    counts = _counts()
+    stripe = sk.pick_stripe(1080)
+    # (frames, f32 frames, packed payload, payload, total, copy_ target)
+    sets = [(f, f.to(torch.float32),
+             sk.payload_to_rows_packed(p, 1080, 1920, NUM_AC, stripe), p, t,
+             torch.empty_like(f)) for f, p, t in sets]
+    calls = {}
+    for v in ABLATIONS:
+        x = int(v == "full_notrunc")  # full_notrunc reads the f32 frames
+        calls[f"ablation_{v}"] = (
+            lambda *s, v=v, x=x: ea.ablate(s[x], DELTA, NUM_AC, v))
+        calls[f"ablation_{v}_plain"] = (
+            lambda *s, v=v, x=x: ea.ablate_plain(s[x], DELTA, NUM_AC, v))
+    calls.update({
+        "embed_packedin": lambda f, x, q, p, t, d: ab.embed_frames_packedin(
+            f, q, t, DELTA, NUM_AC),
+        "embed_packedin_plain": lambda f, x, q, p, t, d:
+            ab.embed_frames_packedin_plain(f, q, t, DELTA, NUM_AC),
+        "roundtrip_dual": lambda f, x, q, p, t, d: dc.dual_roundtrip_packed(
+            f, p, t, DELTA, NUM_AC),
+        "roundtrip_dual_plain": lambda f, x, q, p, t, d:
+            dc.dual_roundtrip_packed_plain(f, p, t, DELTA, NUM_AC),
+        "copy": lambda f, x, q, p, t, d: rr.copy_frames(f),
+        "copy_plain": lambda f, x, q, p, t, d: rr.copy_frames_plain(f),
+        "dmaspec": lambda f, x, q, p, t, d: rr.dmaspec(f, p, NUM_AC),
+        "dmaspec_plain": lambda f, x, q, p, t, d: rr.dmaspec_plain(f, p,
+                                                                   NUM_AC),
+    })
+    times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    # the yardstick of K12 copy: one PyTorch call, never on a path
+    copy_ = _per_set(lambda f, x, q, p, t, d: d.copy_(f), sets)
+    library = {"copy": _time_ms(copy_)}
+    library_queued = _queued_ms(copy_)
+    _set_counts(counts)
+    cold = f"rotating over {len(sets)} input sets"
+    print(f"phase 11 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
+          f"{cold}, {gpu}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f", library copy_ {library['copy']:.4f} ms", flush=True)
+    print(f"phase 11 device times 1920x1080 B=8 (mean of 20 calls queued "
+          f"behind a sleep kernel, {cold}, {gpu}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items())
+          + f", library copy_ {library_queued:.4f} ms", flush=True)
+    del sets, copy_
+
+    # the path: each study's entry point, as a user runs it
+    small = ["--batch", "8", "--iters", "3"]
+    _set_counts()
+    _run_main("extract_ablation", ea.main, small)
+    _run_main("ab_packed_payload", ab.main, small)
+    _run_main("dualchain_r5", dc.main, small)
+    _run_main("roofline_r4", rr.main, small)
+    _run_main("roofline_r4", rr.main, ["--batch", "128", "--iters", "3",
+                                       "--variants", "copy,dmaspec,fused,embed"])
+    # at 768p the default stripe is 96; 216 and 360 do not divide the
+    # height, so their variants are error rows and the study exits 1
+    rows = _run_main("roofline_r4", rr.main, [
+        "--batch", "8", "--iters", "3", "--height", "768", "--width", "1360"],
+        rc_want=1)
+    stripes = {r["variant"]: r.get("stripe") for r in rows[1:]
+               if "ms_per_batch" in r}
+    errors = {r["variant"] for r in rows[1:] if "error" in r}
+    check(stripes == dict.fromkeys(("copy", "dmaspec", "fused", "embed"), 96)
+          and errors == {"fused_s216", "fused_s360"},
+          f"roofline_r4 at 768p: stripes {stripes}, error rows {errors}")
+    rows = _run_main("device_roofline", device_roofline.main,
+                     ["--batch", "8", "--iters", "5"])
+    launches = dict(zip(names, (
+        *(getattr(ea, f"{v.upper()}_LAUNCHES") for v in ABLATIONS),
+        ab.PACKEDIN_LAUNCHES, dc.DUAL_LAUNCHES, rr.COPY_LAUNCHES,
+        rr.DMASPEC_LAUNCHES)))
+    check(all(n > 0 for n in launches.values()),
+          f"the studies did not launch every study kernel: {launches}")
+    check(all("kernel_ms_each" in r for r in rows[1:]),
+          f"device_roofline read no kernel from the timeline: {rows}")
+    print("phase 11 study launches: "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    return errs, launches, times, queued, library
 
 
 if __name__ == "__main__":

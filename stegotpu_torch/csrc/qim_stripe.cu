@@ -26,7 +26,8 @@
 // n*num_ac + j) and any width W % 8 == 0 works.
 //
 // All six kernels share one embed (embed_block) and one decode
-// (slot_bits), as the TPU kernels share _embed_core and _extract_bits_f32:
+// (slot_bits), defined in qim_common.cuh with the study kernels of
+// qim_study.cu, as the TPU kernels share _embed_core and _extract_bits_f32:
 // the exactness harness (ops/exactness.py) holds K3's and K4's stego
 // byte-identical to K1's, K4's bits and K3's count to K2 on their stego,
 // and K5 to K2, with zero tolerance; K6's stego is K1's and its rows are
@@ -46,217 +47,9 @@
 // an approximate divide and flushes denormals, which moves round(y/delta)
 // at the rounding boundary.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "qim_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ void load_rows(const uint8_t* __restrict__ p, int w,
-                                          uint2 (&raw)[8]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    raw[r] = __ldg(reinterpret_cast<const uint2*>(p + static_cast<size_t>(r) * w));
-}
-
-__device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
-                                           const uint2 (&raw)[8]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    *reinterpret_cast<uint2*>(p + static_cast<size_t>(r) * w) = raw[r];
-}
-
-__device__ __forceinline__ void unpack_rows(const uint2 (&raw)[8], float (&x)[8][8]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const uint32_t word = c < 4 ? raw[r].x : raw[r].y;
-      x[r][c] = static_cast<float>((word >> (8 * (c & 3))) & 0xFFu);
-    }
-}
-
-// y[g][v] = sum_r sum_c M[g][r] x[r][c] M[v][c] for the slot rows g < RN.
-template <int RN>
-__device__ __forceinline__ void forward_rows(const float (&x)[8][8], const float* m,
-                                             float (&y)[RN][8]) {
-  float t[RN][8];
-#pragma unroll
-  for (int g = 0; g < RN; ++g)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) acc = fmaf(m[g * 8 + r], x[r][c], acc);
-      t[g][c] = acc;
-    }
-#pragma unroll
-  for (int g = 0; g < RN; ++g)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc = fmaf(t[g][c], m[v * 8 + c], acc);
-      y[g][v] = acc;
-    }
-}
-
-// Floor-mod 2 of an integral float (jnp.mod / torch.remainder semantics,
-// right for negative q too). Exact for |q| < 2^24.
-__device__ __forceinline__ float parity(float q) {
-  return q - 2.0f * floorf(q * 0.5f);
-}
-
-// The QIM embed of one block (_embed_core): the cover's 8 rows of u8 in
-// raw become the stego's. bits points at the block's num_ac payload bits;
-// rem is the number of payload bits left at the block's first slot. The
-// caller passes through blocks with rem <= 0, and every block when
-// delta <= 0, without calling this.
-template <int RN>
-__device__ __forceinline__ void embed_block(uint2 (&raw)[8], const float* m,
-                                            const uint8_t* __restrict__ bits,
-                                            long long rem, int num_ac,
-                                            float delta) {
-  float x[8][8];
-  unpack_rows(raw, x);
-  float y[RN][8];
-  forward_rows<RN>(x, m, y);
-
-  // directional-parity QIM + lattice snap, as a sparse coefficient delta
-  float dy[RN][8];
-#pragma unroll
-  for (int g = 0; g < RN; ++g)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      const int c = g * 8 + v;
-      float d = 0.0f;
-      if (c >= 1 && c <= num_ac && c - 1 < rem) {
-        const float b = static_cast<float>(bits[c - 1]);
-        const float q = rintf(y[g][v] / delta);  // round half to even
-        const float adj = parity(q) != b ? (b == 1.0f ? 1.0f : -1.0f) : 0.0f;
-        d = __fsub_rn(__fmul_rn(q + adj, delta), y[g][v]);
-      }
-      dy[g][v] = d;
-    }
-
-  // pixel image of the sparse delta: d[r][c] = sum_g sum_v M[g][r] dy[g][v] M[v][c]
-  float u[RN][8];
-#pragma unroll
-  for (int g = 0; g < RN; ++g)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int v = 0; v < 8; ++v) acc = fmaf(dy[g][v], m[v * 8 + c], acc);
-      u[g][c] = acc;
-    }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int g = 0; g < RN; ++g) acc = fmaf(m[g * 8 + r], u[g][c], acc);
-      const float o = fminf(fmaxf(__fadd_rn(x[r][c], acc), 0.0f), 255.0f);
-      const uint32_t byte = static_cast<uint32_t>(static_cast<int>(o));  // truncating
-      if (c < 4) lo |= byte << (8 * c);
-      else hi |= byte << (8 * (c - 4));
-    }
-    raw[r] = make_uint2(lo, hi);
-  }
-}
-
-// The decode (_extract_bits_f32): bit v of byte[g] is round(y[g][v]/delta)
-// mod 2 of the block's u8 rows in raw, read exactly as they lie in memory
-// (K3 and K4 pass the quantized stego). delta <= 0 reads all-zero bits.
-template <int RN>
-__device__ __forceinline__ void slot_bits(const uint2 (&raw)[8], const float* m,
-                                          float delta, uint32_t (&byte)[RN]) {
-  float x[8][8];
-  unpack_rows(raw, x);
-  float y[RN][8];
-  forward_rows<RN>(x, m, y);
-#pragma unroll
-  for (int g = 0; g < RN; ++g) {
-    byte[g] = 0;
-    if (delta > 0.0f) {
-#pragma unroll
-      for (int v = 0; v < 8; ++v)
-        byte[g] |= static_cast<uint32_t>(parity(rintf(y[g][v] / delta))) << v;
-    }
-  }
-}
-
-// Output row jg*rows_pad + i*RN + g of the compact-rows layout of frame f
-// belongs to block row by = jg*stripe_blocks + i; returns the frame's
-// first row of the block's stripe group (jg*rows_pad) and sets i.
-__device__ __forceinline__ size_t group_row(int f, int by, int h,
-                                            int stripe_blocks, int rows_pad,
-                                            int& i) {
-  const int jg = by / stripe_blocks;
-  i = by - jg * stripe_blocks;
-  const size_t frame_rows = static_cast<size_t>(h / 8 / stripe_blocks) * rows_pad;
-  return static_cast<size_t>(f) * frame_rows + static_cast<size_t>(jg) * rows_pad;
-}
-
-// K2's layout: byte (row, bx) of (B, (H/stripe)*rows_pad, W/8); the last
-// block row of a stripe zeroes the stripe's padding rows.
-template <int RN>
-__device__ __forceinline__ void write_packed(uint8_t* __restrict__ packed,
-                                             const uint32_t (&byte)[RN], int f,
-                                             int by, int bx, int h, int bw,
-                                             int stripe_blocks, int rows_pad) {
-  int i;
-  uint8_t* group =
-      packed + group_row(f, by, h, stripe_blocks, rows_pad, i) * bw + bx;
-#pragma unroll
-  for (int g = 0; g < RN; ++g)
-    group[static_cast<size_t>(i * RN + g) * bw] = static_cast<uint8_t>(byte[g]);
-  if (i == stripe_blocks - 1)
-    for (int k = stripe_blocks * RN; k < rows_pad; ++k)
-      group[static_cast<size_t>(k) * bw] = 0;
-}
-
-// K5's layout: lanes 8*bx .. 8*bx+7 of row jg*rows_pad + i*RN + g of
-// (B, (H/stripe)*rows_pad, W) hold bits 0..7 of byte[g], one u8 each.
-template <int RN>
-__device__ __forceinline__ void write_rows(uint8_t* __restrict__ rows,
-                                           const uint32_t (&byte)[RN], int f,
-                                           int by, int bx, int h, int w,
-                                           int stripe_blocks, int rows_pad) {
-  int i;
-  uint8_t* group = rows + group_row(f, by, h, stripe_blocks, rows_pad, i) * w +
-                   static_cast<size_t>(bx) * 8;
-#pragma unroll
-  for (int g = 0; g < RN; ++g) {
-    // spread bit s of the byte to the low bit of byte lane s
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      lo |= ((byte[g] >> s) & 1u) << (8 * s);
-      hi |= ((byte[g] >> (s + 4)) & 1u) << (8 * s);
-    }
-    *reinterpret_cast<uint2*>(group + static_cast<size_t>(i * RN + g) * w) =
-        make_uint2(lo, hi);
-  }
-  if (i == stripe_blocks - 1)
-    for (int k = stripe_blocks * RN; k < rows_pad; ++k)
-      *reinterpret_cast<uint2*>(group + static_cast<size_t>(k) * w) =
-          make_uint2(0u, 0u);
-}
-
-__device__ __forceinline__ void load_dct(float* m, const float* __restrict__ dct) {
-  if (threadIdx.x < 64) m[threadIdx.x] = dct[threadIdx.x];
-  __syncthreads();
-}
-
-// Byte offset of block (by, bx) of frame f in a (B, H, W) u8 tensor.
-__device__ __forceinline__ size_t block_offset(int f, int by, int bx, int h, int w) {
-  return (static_cast<size_t>(f) * h + static_cast<size_t>(by) * 8) * w +
-         static_cast<size_t>(bx) * 8;
-}
 
 template <int RN>
 __global__ void __launch_bounds__(kThreads)
@@ -281,7 +74,8 @@ qim_embed_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)  // else never entered, or delta <= 0: passthrough
-    embed_block<RN>(raw, m, payload + f * cap + blk * num_ac, rem, num_ac, delta);
+    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
+                    num_ac, delta);
   store_rows(stego + off, w, raw);
 }
 
@@ -353,7 +147,8 @@ qim_roundtrip_packed_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)
-    embed_block<RN>(raw, m, payload + f * cap + blk * num_ac, rem, num_ac, delta);
+    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
+                    num_ac, delta);
   store_rows(stego + off, w, raw);
   // re-extract from the quantized stego, still in registers
   uint32_t byte[RN];
@@ -385,7 +180,8 @@ qim_roundtrip_rows_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)
-    embed_block<RN>(raw, m, payload + f * cap + blk * num_ac, rem, num_ac, delta);
+    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
+                    num_ac, delta);
   store_rows(stego + off, w, raw);
   // re-extract from the quantized stego, still in registers
   uint32_t byte[RN];
@@ -421,7 +217,8 @@ qim_embed_check_kernel(const uint8_t* __restrict__ frames,
 
     uint2 raw[8];
     load_rows(frames + off, w, raw);
-    if (rem > 0 && delta > 0.0f) embed_block<RN>(raw, m, bits, rem, num_ac, delta);
+    if (rem > 0 && delta > 0.0f)
+      embed_block<RN>(raw, m, WireBits{bits}, rem, num_ac, delta);
     store_rows(stego + off, w, raw);
     if (rem > 0) {  // blocks never entered hold no valid slot
       // re-extract from the quantized stego, still in registers; with
@@ -440,34 +237,6 @@ qim_embed_check_kernel(const uint8_t* __restrict__ frames,
   }
   count = __reduce_add_sync(0xFFFFFFFFu, count);
   if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(errors + f, count);
-}
-
-}  // namespace
-
-#define STEGOTPU_RN_SWITCH(rn, LAUNCH) \
-  switch (rn) {                        \
-    case 1: LAUNCH(1); break;          \
-    case 2: LAUNCH(2); break;          \
-    case 3: LAUNCH(3); break;          \
-    case 4: LAUNCH(4); break;          \
-    case 5: LAUNCH(5); break;          \
-    case 6: LAUNCH(6); break;          \
-    case 7: LAUNCH(7); break;          \
-    case 8: LAUNCH(8); break;          \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
-
-namespace {
-
-// Select the device and clear a stale error of an earlier call.
-cudaError_t begin(int device) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) (void)cudaGetLastError();
-  return err;
-}
-
-dim3 grid_of(int b, int h, int w) {
-  return dim3((w / 8 + kThreads - 1) / kThreads, h / 8, b);
 }
 
 }  // namespace

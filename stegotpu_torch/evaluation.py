@@ -140,16 +140,20 @@ def compare_videos(
     video_b: str | Path,
     max_frames: int | None = None,
     batch_frames: int = 32,
-    device="cpu",
+    device=None,
 ) -> VideoComparison:
     """Full-video gray PSNR/SSIM (the reference compares only the first
     frame, evaluation.py:176-192; this walks every frame pair).
 
     Each decoded batch goes to `device` and through the batched PSNR/SSIM
     reductions (metrics.psnr_batch/ssim_batch) there — only the per-frame
-    scalars cross back to the host.
+    scalars cross back to the host. device None is the card
+    (device.resolve_device).
     """
+    from stegotpu_torch.device import resolve_device
     from stegotpu_torch.video import VideoReader
+
+    device = resolve_device(device)
 
     psnrs: list[float] = []
     ssims: list[float] = []

@@ -146,11 +146,20 @@ def load_library() -> ctypes.CDLL:
         lib.stegotpu_kron_embed.argtypes = [p, p, p, p, i, i, i, i, i, i64,
                                             i64, f, p]
         lib.stegotpu_kron_extract.argtypes = [p, p, p, i, i, i, i, i, f, p]
+        lib.stegotpu_qim_ablation.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                              i, f, p]
+        lib.stegotpu_qim_embed_packedin.argtypes = [p, p, p, p, i, i, i, i,
+                                                    i, i64, i, i, f, p]
+        lib.stegotpu_qim_roundtrip_dual.argtypes = [p, p, p, p, p, i, i, i,
+                                                    i, i, i64, i, i, f, p]
+        lib.stegotpu_copy.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         for name in ("stegotpu_qim_embed", "stegotpu_qim_extract_packed",
                      "stegotpu_qim_extract_rows",
                      "stegotpu_qim_roundtrip_packed",
                      "stegotpu_qim_roundtrip_rows", "stegotpu_qim_embed_check",
-                     "stegotpu_kron_embed", "stegotpu_kron_extract"):
+                     "stegotpu_kron_embed", "stegotpu_kron_extract",
+                     "stegotpu_qim_ablation", "stegotpu_qim_embed_packedin",
+                     "stegotpu_qim_roundtrip_dual", "stegotpu_copy"):
             getattr(lib, name).restype = i
         lib.stegotpu_cuda_error_string.argtypes = [i]
         lib.stegotpu_cuda_error_string.restype = ctypes.c_char_p

@@ -57,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from stegotpu_torch.device import resolve_device
 from stegotpu_torch.ops import qim
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor
@@ -165,15 +166,17 @@ def _compressed_cover(b: int, h: int, w: int, seed: int) -> np.ndarray:
 
 def check_config(b: int, h: int, w: int, num_ac: int, deltas, rng,
                  verbose: bool = True, precision: str = "wire",
-                 content: str = "noise", device="cpu") -> list[dict]:
+                 content: str = "noise", device=None) -> list[dict]:
     """A row of on-device scalar comparisons per delta, on `device`.
 
     precision: the config.qim_precision the row is recorded under; the
     port computes the wire arithmetic under both names (module docstring).
     content: 'noise' or 'compressed' (module docstring). rng (a numpy
     Generator) is drawn in the JAX package's order, so one seed gives both
-    packages the same covers and payload.
+    packages the same covers and payload. device None is the card
+    (device.resolve_device).
     """
+    device = resolve_device(device)
     cap = (h // 8) * (w // 8) * num_ac
     if content == "compressed":
         frames_np = _compressed_cover(b, h, w, int(rng.integers(1 << 30)))
@@ -233,8 +236,10 @@ def row_ok(row: dict) -> bool:
 
 
 def quick_exactness_check(rng=None, verbose: bool = False,
-                          precision: str = "wire", device="cpu") -> dict:
-    """One selftest-sized config; returns the result row plus ok flag."""
+                          precision: str = "wire", device=None) -> dict:
+    """One selftest-sized config; returns the result row plus ok flag
+    (device None: the card)."""
+    device = resolve_device(device)
     if rng is None:
         rng = np.random.default_rng(42)
     rows = check_config(4, 240, 384, 10, [20.0], rng, verbose=verbose,

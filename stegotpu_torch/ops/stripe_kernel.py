@@ -102,6 +102,17 @@ def pick_stripe(h: int) -> int:
     raise ValueError(f"height {h} is not a multiple of 8")
 
 
+def _stripe_for(h: int, stripe: int | None) -> int:
+    """`stripe`, checked against the frame height, or pick_stripe(h) when
+    it is None. An explicit stripe never goes through the environment."""
+    if stripe is None:
+        return pick_stripe(h)
+    if stripe <= 0 or stripe % BLOCK or h % stripe:
+        raise ValueError(f"stripe {stripe} must be a positive multiple of "
+                         f"{BLOCK} dividing height {h}")
+    return stripe
+
+
 def _slot_span(g: int, num_ac: int) -> tuple[int, int]:
     """In-block column range [s0, s1) of payload slots on slot row g
     (flat coefficient c = 8g + s must lie in [1, num_ac])."""
@@ -159,6 +170,34 @@ def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
     r = r.reshape(b, h // BLOCK, rn, w // BLOCK, 1)
     shifts = torch.arange(BLOCK, dtype=torch.uint8, device=packed.device)
     return _slot_lanes_to_bits((r >> shifts) & 1, num_ac)
+
+
+def payload_to_rows_packed(payload_bits: torch.Tensor, h: int, w: int,
+                           num_ac: int, stripe: int) -> torch.Tensor:
+    """(B, C) wire-order payload bits -> K2's packed compact rows (B,
+    (H/stripe)*rows_pad, W/8) uint8, on the payload's device: byte (f,
+    jg*rp + i*rn + g, bx) = sum_s bit(8g + s) << s over the slots of block
+    (jg*stripe/8 + i, bx); non-slot bits and padding rows are 0. The
+    counterpart of benchmarks/ab_packed_payload.payload_to_rows_packed
+    (:53-61); packed_rows_to_bits inverts it."""
+    b = payload_bits.shape[0]
+    bh, bw = h // BLOCK, w // BLOCK
+    rn = rows_per_block(num_ac)
+    bh_s = stripe // BLOCK
+    rp = _rows_pad(stripe, rn)
+    p = payload_bits.reshape(b, bh, bw, num_ac).to(torch.int32)
+    planes = []
+    for g in range(rn):
+        s0, s1 = _slot_span(g, num_ac)
+        shifts = torch.arange(s0, s1, dtype=torch.int32,
+                              device=payload_bits.device)
+        planes.append((p[..., BLOCK * g + s0 - 1 : BLOCK * g + s1 - 1]
+                       << shifts).sum(-1))                     # (b, bh, bw)
+    rows = torch.stack(planes, dim=2).reshape(b, h // stripe, bh_s * rn, bw)
+    out = torch.zeros((b, h // stripe, rp, bw), dtype=torch.uint8,
+                      device=payload_bits.device)
+    out[:, :, : bh_s * rn] = rows.to(torch.uint8)
+    return out.reshape(b, (h // stripe) * rp, bw)
 
 
 def rows_to_bits(rows: torch.Tensor, h: int, w: int, num_ac: int,
@@ -242,10 +281,12 @@ def embed_frames_plain(frames: torch.Tensor, payload_bits: torch.Tensor,
 
 
 def extract_frames_packed_plain(frames: torch.Tensor, delta: float,
-                                num_ac: int) -> torch.Tensor:
-    """Plain PyTorch version of K2, same arguments and result layout."""
+                                num_ac: int, stripe: int | None = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of K2, same arguments and result layout
+    (stripe: the packed layout's stripe height; None picks it from H)."""
     b, h, w = frames.shape
-    stripe = pick_stripe(h)
+    stripe = _stripe_for(h, stripe)
     rn = rows_per_block(num_ac)
     rp = _rows_pad(stripe, rn)
     bh_s, bw = stripe // BLOCK, w // BLOCK
@@ -275,13 +316,14 @@ def extract_frames_rows_plain(frames: torch.Tensor, delta: float,
 
 def embed_and_extract_frames_packed_plain(
         frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
-        delta: float, num_ac: int
+        delta: float, num_ac: int, stripe: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4: K1's plain embed, then K2's plain
     extract of its stego."""
     stego, bpf = embed_frames_plain(frames, payload_bits, total_bits, delta,
                                     num_ac)
-    return stego, bpf, extract_frames_packed_plain(stego, delta, num_ac)
+    return stego, bpf, extract_frames_packed_plain(stego, delta, num_ac,
+                                                   stripe)
 
 
 def embed_and_extract_frames_rows_plain(
@@ -379,10 +421,11 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _packed_shape(b: int, h: int, w: int, num_ac: int, lanes: int
+def _packed_shape(b: int, h: int, w: int, num_ac: int, lanes: int,
+                  stripe: int | None = None
                   ) -> tuple[tuple[int, int, int], int, int]:
     """((B, (H/stripe)*rows_pad, lanes) output shape, stripe, rows_pad)."""
-    stripe = pick_stripe(h)
+    stripe = _stripe_for(h, stripe)
     rp = _rows_pad(stripe, rows_per_block(num_ac))
     return (b, (h // stripe) * rp, lanes), stripe, rp
 
@@ -471,19 +514,21 @@ def extract_frames_rows(frames: torch.Tensor, delta: float,
 
 def embed_and_extract_frames_packed(
         frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
-        delta: float, num_ac: int
+        delta: float, num_ac: int, stripe: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: embed, then re-extract the quantized stego in the same pass.
     Returns (stego (B, H, W) uint8, bits per frame (B,) int32, packed
     (B, (H/stripe)*rows_pad, W/8) uint8 in K2's layout), on the frames'
-    device. Global bit 0 is the payload's first bit (no bit offset)."""
+    device. Global bit 0 is the payload's first bit (no bit offset).
+    stripe: the packed layout's stripe height, passed explicitly (the
+    roofline study's s216/s360 variants); None picks it from H."""
     global ROUNDTRIP_LAUNCHES
     b, h, w = _check_frames(frames)
     cap = _check_payload(payload_bits, frames, num_ac)
+    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK, stripe)
     if frames.device.type == "cpu":
         return embed_and_extract_frames_packed_plain(
-            frames, payload_bits, total_bits, delta, num_ac)
-    shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK)
+            frames, payload_bits, total_bits, delta, num_ac, stripe)
     stego = torch.empty_like(frames)
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if stego.numel():

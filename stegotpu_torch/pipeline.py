@@ -38,6 +38,7 @@ from stegotpu_torch import image as image_codec
 from stegotpu_torch import payload as payload_mod
 from stegotpu_torch.bitstream import bits_to_bytes, pad_bits
 from stegotpu_torch.config import StegoConfig
+from stegotpu_torch.device import resolve_device
 from stegotpu_torch.metrics import psnr_np
 from stegotpu_torch.ops.dispatch import embed_fn, extract_fn, extract_packed_fn
 from stegotpu_torch.payload import (NeedMoreBits, PayloadParts, open_payload,
@@ -139,12 +140,13 @@ def embed_image_in_video(
     mesh=None,
     frame_range=None,
     sealed_bits=None,
-    device="cpu",
+    device=None,
 ) -> EmbedResult:
     """Embed an encrypted secret image into a video, file to file.
 
     device: the torch device the QIM kernel runs on ('cuda' for the CUDA
-    stripe kernel, 'cpu' for its plain version).
+    stripe kernel, 'cpu' for its plain version); None, the default, is the
+    card, and raises where there is none (device.resolve_device).
 
     rng: optional numpy Generator for a DETERMINISTIC crypto stage
     (ephemeral key/salt/nonce) — test builds only; see payload.seal_payload.
@@ -177,7 +179,7 @@ def embed_data_in_video(
     receiver_pub_compressed: bytes,
     config: StegoConfig = StegoConfig(),
     batch_frames: int = 8,
-    device="cpu",
+    device=None,
 ) -> EmbedResult:
     """Embed arbitrary encrypted bytes (extension mode, not in the reference).
 
@@ -194,7 +196,7 @@ def _embed_payload(
     video_in, plaintext: bytes, width: int, height: int, video_out,
     receiver_pub_compressed: bytes, config: StegoConfig, batch_frames: int,
     rng=None, timer=None, mesh=None, frame_range=None, sealed_bits=None,
-    device="cpu",
+    device=None,
 ) -> EmbedResult:
     """frame_range: optional (lo, hi) source-frame window this call owns —
     the multi-host segment contract (parallel/dist_pipeline.py): frames
@@ -204,6 +206,7 @@ def _embed_payload(
     cut on batch boundaries. sealed_bits: pre-sealed payload bits shared
     across hosts (crypto randomness must be identical on every segment).
     """
+    device = resolve_device(device)
     if config.delta <= 0:
         raise ValueError("embedding requires delta > 0 (delta <= 0 embeds nothing)")
     if mesh is not None:
@@ -533,7 +536,7 @@ def extract_image_from_video(
     batch_frames: int = 8,
     timer=None,
     mesh=None,
-    device="cpu",
+    device=None,
 ) -> ExtractResult:
     """Extract, decrypt, and verify the secret image from a stego video.
 
@@ -549,8 +552,9 @@ def extract_image_from_video(
 
     timer: optional stage timer (see embed_image_in_video).
     mesh: not ported yet (must be None).
-    device: the torch device the extract kernel runs on.
+    device: the torch device the extract kernel runs on (None: the card).
     """
+    device = resolve_device(device)
     if mesh is not None:
         raise _not_ported("mesh extraction", "M11 parallel/")
     with VideoReader(stego_video) as reader:
@@ -765,13 +769,14 @@ def embed_payload_into_gray_frames(
     frames_gray: np.ndarray,
     payload_bits: np.ndarray,
     config: StegoConfig = StegoConfig(),
-    device="cpu",
+    device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Embed raw payload bits into a (B, H, W) uint8 gray frame stack.
 
     Returns (stego frames, bits embedded per frame). Frames must already be
-    cropped to multiples of 8.
+    cropped to multiples of 8. device: as for embed_image_in_video.
     """
+    device = resolve_device(device)
     b, h, w = frames_gray.shape
     cap = config.frame_capacity_bits(h, w)
     seg = pad_bits(payload_bits[: b * cap], b * cap).reshape(b, cap)
@@ -786,9 +791,11 @@ def embed_payload_into_gray_frames(
 
 
 def extract_bits_from_gray_frames(
-    frames_gray: np.ndarray, config: StegoConfig = StegoConfig(), device="cpu"
+    frames_gray: np.ndarray, config: StegoConfig = StegoConfig(), device=None
 ) -> np.ndarray:
-    """Extract the full capacity bitstream from a (B, H, W) gray frame stack."""
+    """Extract the full capacity bitstream from a (B, H, W) gray frame stack
+    (device: as for embed_image_in_video)."""
+    device = resolve_device(device)
     _, h, w = frames_gray.shape
     bits = extract_fn(config.kernel, h, w, config.qim_precision)(
         _to_device(frames_gray, device), float(config.delta),

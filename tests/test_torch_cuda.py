@@ -401,3 +401,145 @@ def test_metrics_on_card(dev):
                                                     s[0].cpu().numpy())) < 1e-3
     assert abs(float(ssim_batch(a, s)[0]) - ssim_np(a[0].cpu().numpy(),
                                                     s[0].cpu().numpy())) < 1e-4
+
+
+# --- the study kernels K9-K12 (stegotpu_torch/studies) -------------------------
+
+ABLATIONS = ("full", "no_qim", "no_horiz", "io_only", "io_f4", "full_notrunc")
+
+
+@pytest.mark.parametrize("kind", ["mid", "dark"])
+@pytest.mark.parametrize("b,h,w,num_ac", [(4, 48, 240, 10), (4, 64, 64, 63),
+                                          (4, 1080, 1920, 10),
+                                          (4, 768, 1360, 30)])
+def test_ablation_kernel(dev, b, h, w, num_ac, kind):
+    """K9: full and full_notrunc are K5 byte for byte; io_only and io_f4
+    equal their plain versions; no_qim equals its plain version or is off
+    by 1 (mod 256), never more (the f32 sums of two implementations round
+    apart only next to an integer, where the truncating cast steps);
+    no_horiz's bits and full's agree with the plain version outside the
+    exactness envelope. Each launch counts once."""
+    from stegotpu_torch.studies import extract_ablation as ea
+
+    frames, _, _ = _cover(dev, kind, b, h, w, num_ac)
+    r5 = sk.extract_frames_rows(frames, 20.0, num_ac)
+    before = [getattr(ea, ea.COUNTERS[v]) for v in ABLATIONS]
+    out = {v: ea.ablate(frames.float() if v == "full_notrunc" else frames,
+                        20.0, num_ac, v) for v in ABLATIONS}
+    assert [getattr(ea, ea.COUNTERS[v]) for v in ABLATIONS] == \
+        [n + 1 for n in before]
+    assert torch.equal(out["full"], r5)
+    assert torch.equal(out["full_notrunc"], r5)
+    for v in ("io_only", "io_f4"):
+        assert torch.equal(out[v], ea.ablate_plain(frames, 20.0, num_ac, v))
+    step = (out["no_qim"].int() - ea.ablate_plain(frames, 20.0, num_ac,
+                                                  "no_qim").int()) % 256
+    assert bool(((step == 0) | (step == 1) | (step == 255)).all())
+    assert (step != 0).double().mean().item() < 0.01
+    stripe = sk.pick_stripe(h)
+    bits = sk.rows_to_bits(out["full"], h, w, num_ac, stripe)
+    bits_p = sk.rows_to_bits(ea.ablate_plain(frames, 20.0, num_ac, "full"),
+                             h, w, num_ac, stripe)
+    assert not ((bits != bits_p) & ~_near_boundary(frames, 20.0, num_ac)).any()
+    nh = out["no_horiz"] != ea.ablate_plain(frames, 20.0, num_ac, "no_horiz")
+    assert nh.double().mean().item() < 0.01
+
+
+def test_packedin_and_dual_kernels(dev):
+    """K10 is K1 and K11 is K4, byte for byte, at 1080p and at num_ac=63;
+    garbage in the packed payload's non-slot bits and padding rows does not
+    reach K10's stego."""
+    from stegotpu_torch.studies import ab_packed_payload as ab
+    from stegotpu_torch.studies import dualchain_r5 as dc
+
+    for b, h, w, num_ac in ((4, 1080, 1920, 10), (2, 64, 64, 63),
+                            (2, 768, 1360, 30)):
+        frames, payload, total = _cover(dev, "mid", b, h, w, num_ac)
+        args = (frames, payload, total, 20.0, num_ac)
+        stripe = sk.pick_stripe(h)
+        packed = sk.payload_to_rows_packed(payload, h, w, num_ac, stripe)
+        assert torch.equal(sk.packed_rows_to_bits(packed, h, w, num_ac, stripe),
+                           payload)
+        s1, bpf1 = sk.embed_frames(*args)
+        s10, bpf10 = ab.embed_frames_packedin(frames, packed, total, 20.0,
+                                              num_ac)
+        assert torch.equal(s10, s1) and torch.equal(bpf10, bpf1)
+        dirty = packed | ~sk.payload_to_rows_packed(
+            torch.ones_like(payload), h, w, num_ac, stripe)
+        s10d, _ = ab.embed_frames_packedin(frames, dirty, total, 20.0, num_ac)
+        assert torch.equal(s10d, s1)
+        ref = sk.embed_and_extract_frames_packed(*args)
+        got = dc.dual_roundtrip_packed(*args)
+        for a, c in zip(got, ref):
+            assert torch.equal(a, c)
+    with pytest.raises(ValueError, match="odd"):
+        dc.dual_roundtrip_packed(*_cover(dev, "mid", 3, 48, 64, 10)[:2], 10,
+                                 20.0, 10)
+
+
+def test_copy_and_dmaspec_kernels(dev):
+    """K12: copy is the frames, dmaspec is (frames, payload_to_rows_packed
+    of the payload), also with the stripe passed explicitly; each launch
+    counts once."""
+    from stegotpu_torch.studies import roofline_r4 as rr
+
+    frames, payload, _ = _cover(dev, "mid", 4, 1080, 1920, 10)
+    before = (rr.COPY_LAUNCHES, rr.DMASPEC_LAUNCHES)
+    assert torch.equal(rr.copy_frames(frames), frames)
+    for stripe in (None, 216, 360):
+        s, p = rr.dmaspec(frames, payload, 10, stripe)
+        assert torch.equal(s, frames)
+        assert torch.equal(p, sk.payload_to_rows_packed(
+            payload, 1080, 1920, 10, stripe or 120))
+    assert (rr.COPY_LAUNCHES, rr.DMASPEC_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        rr.copy_frames(frames.reshape(-1)[8:8 + 4 * 48 * 64].reshape(4, 48, 64))
+
+
+def test_study_mains_on_card(dev, capsys):
+    """Each study's main runs at a small shape on the card and prints JSON
+    rows, the first naming the card. At H=144 the default stripe is 72, and
+    roofline_r4's 216 and 360 do not divide it: error rows, exit 1."""
+    import json
+
+    from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
+                                        dualchain_r5, extract_ablation,
+                                        roofline_r4)
+
+    argv = ["--batch", "4", "--iters", "2", "--height", "144", "--width",
+            "256"]
+    for mod in (extract_ablation, ab_packed_payload, dualchain_r5,
+                roofline_r4, device_roofline):
+        rc = mod.main(argv)
+        rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+        assert rows[0]["device"] == torch.cuda.get_device_name(0)
+        assert len(rows) >= 2
+        errors = {r["variant"] for r in rows if "error" in r}
+        if mod is roofline_r4:
+            assert rc == 1 and errors == {"fused_s216", "fused_s360"}
+            assert all(r["stripe"] == 72 for r in rows if "ms_per_batch" in r)
+        else:
+            assert rc == 0 and not errors, mod.__name__
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Called without `device`, the entry points run on the card: the array
+    API launches K1 and K2, and the exactness harness K4 and K5."""
+    from stegotpu_torch.device import resolve_device
+    from stegotpu_torch.ops.exactness import quick_exactness_check
+
+    assert resolve_device().type == "cuda"
+    rng = np.random.default_rng(9)
+    cover = rng.integers(16, 240, (2, 120, 160), np.uint8)
+    bits = rng.integers(0, 2, 3000, np.uint8)
+    cfg = StegoConfig()
+    before = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
+              sk.EXTRACT_ROWS_LAUNCHES)
+    stego, _ = embed_payload_into_gray_frames(cover, bits, cfg)
+    got = extract_bits_from_gray_frames(stego, cfg)
+    np.testing.assert_array_equal(got[:3000], bits)
+    assert quick_exactness_check()["ok"]
+    after = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
+             sk.EXTRACT_ROWS_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before)), (before, after)

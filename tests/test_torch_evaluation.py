@@ -58,7 +58,8 @@ def test_compare_videos_matches_jax(videos, pair, kw):
 
 def test_compare_videos_refuses_an_empty_comparison(videos):
     with pytest.raises(IOError):
-        tev.compare_videos(videos / "a.mp4", videos / "a.mp4", max_frames=-1)
+        tev.compare_videos(videos / "a.mp4", videos / "a.mp4", max_frames=-1,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{}, {"num_ac_coeffs": 3},

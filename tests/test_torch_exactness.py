@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize("precision", ["wire", "fast"])
 def test_quick_exactness_check_passes_on_cpu(precision):
-    row = tex.quick_exactness_check(precision=precision)
+    row = tex.quick_exactness_check(precision=precision, device="cpu")
     assert row["ok"], row
     assert row["precision"] == precision
     for k in tex.EXACT_KEYS:
@@ -39,7 +39,7 @@ def test_constants_keys_and_policy_match_jax():
                 assert tex.is_robust(delta, num_ac, prec) == \
                     jex.is_robust(delta, num_ac, prec)
     # same rows, same keys; row_ok judges a row the same way in both
-    t = tex.quick_exactness_check()
+    t = tex.quick_exactness_check(device="cpu")
     j = jex.quick_exactness_check()
     assert set(t) == set(j)
     for k in ("h", "w", "batch", "num_ac", "delta", "content", "precision",
@@ -61,7 +61,7 @@ def test_compressed_content_row_passes():
 
     rows = tex.check_config(4, 480, 720, 10, [8.0],
                             np.random.default_rng(42), content="compressed",
-                            verbose=False)
+                            verbose=False, device="cpu")
     assert rows[0]["content"] == "compressed"
     assert rows[0]["roundtrip_errors_pallas"] == 0, rows[0]
     assert tex.row_ok(rows[0])
@@ -116,12 +116,12 @@ def under_tf32(fn):
     return call
 
 rows = check_config(4, 240, 384, 10, [20.0], np.random.default_rng(42),
-                    verbose=False)
+                    verbose=False, device="cpu")
 assert row_ok(rows[0]), rows[0]
 qim.embed_frames = under_tf32(qim.embed_frames)
 qim.extract_frames = under_tf32(qim.extract_frames)
 rows = check_config(4, 240, 384, 10, [20.0], np.random.default_rng(42),
-                    verbose=False)
+                    verbose=False, device="cpu")
 assert rows[0]["extract_mismatch_cover_nonboundary"] > 0, rows[0]
 assert not row_ok(rows[0])
 print("SENTINEL-CATCHES-TF32")
@@ -142,7 +142,7 @@ def test_num_ac_30_noise_row_is_past_the_ber_bound_in_both_packages():
     j = jex.check_config(2, 240, 384, 30, [20.0], np.random.default_rng(42),
                          verbose=False)[0]
     t = tex.check_config(2, 240, 384, 30, [20.0], np.random.default_rng(42),
-                         verbose=False)[0]
+                         verbose=False, device="cpu")[0]
     assert j["robust"] and t["robust"]
     assert not jex.row_ok(j) and not tex.row_ok(t)
     assert t["roundtrip_errors_xla"] == j["roundtrip_errors_xla"] > \

@@ -39,11 +39,11 @@ GOLDEN = REPO / "tests" / "golden"
 def test_import_needs_only_torch_numpy_scipy():
     """Importing the pipeline, every kernel module, the verified embed, the
     exactness harness, the fixtures, the GPU check tool, the metrics, the
-    evaluation suite and the experimental kernels succeeds with jax,
-    stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax module
-    behind."""
+    evaluation suite, the experimental kernels and every study module
+    succeeds with jax, stegotpu, cryptography, PIL and cv2 blocked, and
+    leaves no jax module behind."""
     code = """
-import sys
+import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -57,6 +57,12 @@ import stegotpu_torch.metrics, stegotpu_torch.evaluation
 import stegotpu_torch.ops.experimental.qim_fast
 import stegotpu_torch.ops.experimental.kron_kernel
 import stegotpu_torch.ops._build
+import stegotpu_torch.studies
+studies = [m.name for m in pkgutil.iter_modules(stegotpu_torch.studies.__path__)]
+assert {"extract_ablation", "ab_packed_payload", "dualchain_r5",
+        "roofline_r4", "device_roofline"} <= set(studies), studies
+for name in studies:
+    importlib.import_module("stegotpu_torch.studies." + name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in BLOCKED or m.startswith("jax"))
 assert not bad, bad

@@ -65,7 +65,7 @@ def test_wrong_delta_fails_closed():
     priv = crypto.load_private_pem(GOLDEN / "bob_private_key.pem")
     res = extract_image_from_video(GOLDEN / "ref_stego.avi", priv,
                                    StegoConfig(delta=23, num_ac_coeffs=10),
-                                   batch_frames=4)
+                                   batch_frames=4, device="cpu")
     assert not res.success
 
 
@@ -167,7 +167,8 @@ def test_raw_data_round_trip(multibatch, tmp_path):
     assert res.success
     out = extract_image_from_video(tmp_path / "s.avi",
                                    crypto.load_private_pem(d / "priv.pem"),
-                                   StegoConfig(), batch_frames=2)
+                                   StegoConfig(), batch_frames=2,
+                                   device="cpu")
     assert out.success and out.is_raw_data and out.data == data
 
 
@@ -185,7 +186,8 @@ def test_array_api_matches_jax():
             frames, bits, StegoConfig(kernel=kernel), device="cpu")
         assert bpf.tolist() == [600, 400, 0]
         np.testing.assert_array_equal(stego[2], frames[2])
-        got = extract_bits_from_gray_frames(stego, StegoConfig(kernel=kernel))
+        got = extract_bits_from_gray_frames(stego, StegoConfig(kernel=kernel),
+                                            device="cpu")
         np.testing.assert_array_equal(got[:1000], bits)
         np.testing.assert_array_equal(j_bits(stego, JConfig())[:1000], bits)
 
@@ -196,6 +198,8 @@ def test_unported_branches_raise(multibatch, tmp_path):
     d, pub = multibatch
     with pytest.raises(NotImplementedError, match="M11"):
         embed_image_in_video(d / "cover.avi", d / "secret.png",
-                             tmp_path / "s.avi", pub, mesh=object())
+                             tmp_path / "s.avi", pub, mesh=object(),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="M11"):
-        extract_image_from_video(d / "cover.avi", None, mesh=object())
+        extract_image_from_video(d / "cover.avi", None, mesh=object(),
+                                 device="cpu")

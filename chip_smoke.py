@@ -8,7 +8,8 @@ PyTorch built for CUDA:
 
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
-study kernels K9-K12 in qim_study.cu) and runs eleven phases:
+study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu) and runs
+thirteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -38,7 +39,17 @@ study kernels K9-K12 in qim_study.cu) and runs eleven phases:
      against K5, K1, K4, the frames and payload_to_rows_packed with zero
      tolerance and against their plain versions; their times; then the path
      of the four kernels: every study's main at 1080p, and one roofline
-     pass at B=128 (a working set far beyond the 50 MB L2).
+     pass at B=128 (a working set far beyond the 50 MB L2);
+12.  K13 (the fused round trip through a cp.async ring of 2, 3 or 4 tiles)
+     against K4 with zero tolerance at 1080p and 768p (B=8), at the
+     study's 1080p B=128 and on odd shapes, some at batches where the
+     ring wraps many times, and against its plain version; its times and
+     its plain version's; then its path: the emitpipe_r4 study at B=128
+     for each ring depth, with and without the register cap, and the
+     roofline's fused_buf3/4;
+13.  the command line at full width (stegotpu_torch.cli, in process):
+     fixtures, genkey, embed, extract, inspect, steganalyze, capacity,
+     evaluate, selftest and bench on a 1920x1080 cover.
 
 Every phase prints; any failure exits non-zero. The line before the last
 is a JSON object with each kernel's route, source, launches on its path,
@@ -54,7 +65,8 @@ is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
 stegotpu_torch (which imports cryptography, Pillow and cv2 only in the
-file-to-file phase).
+file-to-file phases and the command line's, phase 13, which fails without
+them).
 """
 
 from __future__ import annotations
@@ -112,18 +124,24 @@ def _ptxas_summary(log: str) -> str:
     -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...' for the stripe
     and study kernels, the instantiation of the default num_ac=10 (rn=2,
     or the only rn a kernel has) and the largest over rn=1..8, with one
-    entry per K9 variant ('ablation_no_qim<2>:...'); 'kron_embed:64r/0s'
-    and 'copy:16r/0s' for the kernels with one instantiation."""
+    entry per K9 variant ('ablation_no_qim<2>:...') and per K13 ring depth,
+    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...');
+    'kron_embed:64r/0s' and 'copy:16r/0s' for the kernels with one
+    instantiation."""
     per: dict[str, dict[int, tuple[int, int]]] = {}
     name, rn, spill = None, 0, 0
     for line in log.splitlines():
         m = re.search(r"\d(qim_[a-z_]+|kron_[a-z]+|copy)_kernel"
-                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", line)
         if m and "Compiling entry" in line:
-            kind, a1, a2 = m.groups()
+            kind, a1, a2, a3 = m.groups()
             spill = 0
             if kind == "copy":  # copy_kernel<V>: V is the variant
                 name, rn = ("copy", "dmaspec")[int(a1)], 0
+            elif kind == "qim_roundtrip_pipe":  # <RN, BUFS, MINB>
+                name, rn = f"roundtrip_pipe_buf{a2}", int(a1)
+                if rn <= 2 and a3 == "1":  # the build without the cap
+                    name += "_uncapped"
             elif a2 is not None:  # qim_ablation_kernel<RN, V>
                 name, rn = f"ablation_{ABLATIONS[int(a2)]}", int(a1)
             else:
@@ -204,6 +222,7 @@ COUNTERS = {
     "ab_packed_payload": ("PACKEDIN_LAUNCHES",),
     "dualchain_r5": ("DUAL_LAUNCHES",),
     "roofline_r4": ("COPY_LAUNCHES", "DMASPEC_LAUNCHES"),
+    "emitpipe_r4": tuple(f"PIPE_BUF{n}_LAUNCHES" for n in (2, 3, 4)),
 }
 
 
@@ -211,12 +230,14 @@ def _counter_modules():
     from stegotpu_torch.ops import stripe_kernel
     from stegotpu_torch.ops.experimental import kron_kernel
     from stegotpu_torch.studies import (ab_packed_payload, dualchain_r5,
-                                        extract_ablation, roofline_r4)
+                                        emitpipe_r4, extract_ablation,
+                                        roofline_r4)
 
     return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel,
             "extract_ablation": extract_ablation,
             "ab_packed_payload": ab_packed_payload,
-            "dualchain_r5": dualchain_r5, "roofline_r4": roofline_r4}
+            "dualchain_r5": dualchain_r5, "roofline_r4": roofline_r4,
+            "emitpipe_r4": emitpipe_r4}
 
 
 def _counts() -> dict[str, int]:
@@ -472,11 +493,17 @@ def main() -> int:
     launches.update(launches10)
     errs11, launches11, times11, queued11, library = _studies(dev, rng, gpu,
                                                               sets)
-    del sets
     errs.update(errs11)                                       # phase 11
     launches.update(launches11)
     times.update(times11)
     queued.update(queued11)
+    errs12, launches12, times12, queued12 = _pipe(dev, rng, gpu, sets)
+    del sets
+    errs.update(errs12)                                       # phase 12
+    launches.update(launches12)
+    times.update(times12)
+    queued.update(queued12)
+    _cli()                                                    # phase 13
 
     from stegotpu_torch.studies import bounds
 
@@ -495,11 +522,14 @@ def main() -> int:
                                    111),
                 "roundtrip_dual": ((study, "benchmarks/dualchain_r5.py"), 91),
                 "copy": ((study, "benchmarks/roofline_r4.py"), 91),
-                "dmaspec": ((study, "benchmarks/roofline_r4.py"), 149)}
+                "dmaspec": ((study, "benchmarks/roofline_r4.py"), 149),
+                **{f"roundtrip_pipe_buf{n}": (
+                    ("stegotpu_torch/csrc/qim_pipe.cu",
+                     "benchmarks/emitpipe_r4.py"), 119) for n in (2, 3, 4)}}
     errs.update(embed=embed_err, extract_packed=extract_err)
     kernels = []
     for k, ((source, tpu_file), line) in replaces.items():
-        # the least time for this run's inputs: phase 4's and phase 11's
+        # the least time for this run's inputs: phase 4's, 11's and 12's
         # timed calls, 1920x1080, B=8, num_ac=10, every block entered
         bound, bound_by = bounds.bound_ms(*bounds.work(
             k, 8, 1080, 1920, NUM_AC, sk.pick_stripe(1080)))
@@ -520,26 +550,6 @@ def main() -> int:
     return 0
 
 
-class _StageTimer:
-    """Host-clock seconds per pipeline stage (the pipeline's `timer`
-    protocol: a `stage(name)` context manager)."""
-
-    def __init__(self) -> None:
-        self.totals: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = (self.totals.get(name, 0.0)
-                                 + time.perf_counter() - t)
-
-    def __str__(self) -> str:
-        return " ".join(f"{k} {v:.3f} s" for k, v in sorted(self.totals.items()))
-
-
 def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
                   cfg) -> dict[str, int]:
     """embed_image_in_video(cfg) -> extract_image_from_video (standard
@@ -554,6 +564,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
     from stegotpu_torch.ops import stripe_kernel as sk
     from stegotpu_torch.pipeline import (embed_image_in_video,
                                          extract_image_from_video)
+    from stegotpu_torch.utils.profiling import StageTimer
     from stegotpu_torch.video import VideoWriter
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -566,7 +577,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
         priv, pub = crypto.generate_keypair(rng)
         crypto.save_keypair_pem(priv, tmp / "priv.pem", tmp / "pub.pem")
         _set_counts()
-        embed_stages, extract_stages = _StageTimer(), _StageTimer()
+        embed_stages, extract_stages = StageTimer(), StageTimer()
         t0 = time.perf_counter()
         res = embed_image_in_video(
             tmp / "cover.avi", tmp / "secret.png", tmp / "stego.avi",
@@ -581,14 +592,16 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
             timer=extract_stages, device=dev)
         t2 = time.perf_counter()
         counts = _counts()
+        embed_rep, extract_rep = (t.report().replace("\n", "; ")
+                                  for t in (embed_stages, extract_stages))
         check(out.success and out.hash_ok, f"file extract failed: {out.error}")
         check(np.array_equal(out.pixels, secret),
               "file extract: secret not pixel-identical")
         print(f"{label}: {res.total_payload_bits} bits in {res.frames_used} "
               f"frames, residual {res.residual_bits}, secret "
               f"{secret_hw[1]}x{secret_hw[0]} pixel-identical, SHA3 ok; host "
-              f"clock: embed {t1 - t0:.3f} s ({embed_stages}), extract "
-              f"{t2 - t1:.3f} s ({extract_stages}); launches "
+              f"clock: embed {t1 - t0:.3f} s ({embed_rep}), "
+              f"extract {t2 - t1:.3f} s ({extract_rep}); launches "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v),
               flush=True)
     return counts
@@ -1048,8 +1061,8 @@ def _ablation_near(frames, delta: float, num_ac: int, stripe: int):
                  for x in (near_t, near_y))
 
 
-def _run_main(label: str, main, argv: list[str], rc_want: int = 0
-              ) -> list[dict]:
+def _run_main(label: str, main, argv: list[str], rc_want: int = 0,
+              phase: int = 11) -> list[dict]:
     """Run a study's main(argv), capturing its standard output; it must
     exit `rc_want` and print JSON rows, one to a line. Returns the rows."""
     import io
@@ -1067,9 +1080,9 @@ def _run_main(label: str, main, argv: list[str], rc_want: int = 0
           and all(isinstance(r, dict) for r in rows),
           f"{label} exited {rc} with rows {rows}")
     for row in rows:
-        print(f"phase 11 {label} ({' '.join(argv)}) row: {json.dumps(row)}",
-              flush=True)
-    print(f"phase 11 {label}: {len(rows)} rows in "
+        print(f"phase {phase} {label} ({' '.join(argv)}) row: "
+              f"{json.dumps(row)}", flush=True)
+    print(f"phase {phase} {label}: {len(rows)} rows in "
           f"{time.perf_counter() - t0:.1f} s host clock", flush=True)
     return rows
 
@@ -1281,7 +1294,8 @@ def _studies(dev, rng, gpu: str, sets: list):
     stripes = {r["variant"]: r.get("stripe") for r in rows[1:]
                if "ms_per_batch" in r}
     errors = {r["variant"] for r in rows[1:] if "error" in r}
-    check(stripes == dict.fromkeys(("copy", "dmaspec", "fused", "embed"), 96)
+    check(stripes == dict.fromkeys(("copy", "dmaspec", "fused", "embed",
+                                    "fused_buf3", "fused_buf4"), 96)
           and errors == {"fused_s216", "fused_s360"},
           f"roofline_r4 at 768p: stripes {stripes}, error rows {errors}")
     rows = _run_main("device_roofline", device_roofline.main,
@@ -1298,6 +1312,303 @@ def _studies(dev, rng, gpu: str, sets: list):
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return errs, launches, times, queued, library
 
+
+def _misaligned(x, offset: int):
+    """A contiguous copy of x whose storage starts `offset` bytes past an
+    allocation's start (rows or payload off 16-byte alignment)."""
+    import torch
+
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# K13's odd shapes (B, H, W, num_ac, share of the capacity embedded): W % 16
+# != 0, block columns no multiple of the 128-block chunk, odd num_ac, a
+# payload that ends mid-frame. At the small batches every CTA walks at most
+# one tile; at the large ones the tiles outnumber the resident CTAs (the
+# SMs times 1-4) some 10-60 times, so every slot of every ring depth is
+# refilled again and again, misaligned rows and payloads included.
+PIPE_ODD = [(3, 48, 1048, 10, 0.7), (2, 40, 136, 1, 1.0),
+            (2, 64, 64, 63, 0.5), (4, 96, 1360, 7, 0.3),
+            (512, 96, 1360, 7, 0.3), (512, 48, 1048, 10, 0.7),
+            (2048, 40, 136, 1, 1.0), (2048, 64, 64, 63, 0.5)]
+
+
+def _pipe(dev, rng, gpu: str, sets: list):
+    """Phase 12: K13 (studies/emitpipe_r4, csrc/qim_pipe.cu).
+
+    At 1920x1080 and 1360x768, B=8, on both covers, K13 at bufs 2, 3 and 4
+    equals K4 byte for byte (stego, bits per frame, packed bits), and is
+    held against its plain version (K4's) as K4 is in phase 6: stego within
+    the flip budget, bits within the exactness envelope. At the path's own
+    input (the study's 1080p, B=128, where each CTA walks some 65 tiles) it
+    equals K4 byte for byte at every bufs, with and without its register
+    cap. On the odd shapes, with frames 8 bytes and payloads 1-3 bytes off
+    16-byte alignment and at delta 20, 8, 0 and -4, it equals K4 byte for
+    byte. Its times and its plain version's at 1920x1080, B=8, rotating
+    over phase 4's input `sets`, per call and queued. Then the path,
+    counters set to 0 before and read after: the study's main at B=128 for
+    each bufs, capped and not, and roofline_r4's fused_buf3 and fused_buf4
+    rows (K13 at bufs 3 and 4) beside fused (K4) at B=128.
+
+    Returns (max_abs_err against K4, launches on the path, per-call ms,
+    queued ms) by kernel name, the plain version's times under
+    "<name>_plain"."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import emitpipe_r4 as ep
+    from stegotpu_torch.studies import harness
+    from stegotpu_torch.studies import roofline_r4 as rr
+
+    names = {n: f"roundtrip_pipe_buf{n}" for n in ep.BUFS}
+    errs = dict.fromkeys(names.values(), 0)
+
+    def max_diff(got, ref) -> int:
+        return max(int((a.to(torch.int32) - c.to(torch.int32)).abs().max())
+                   for a, c in zip(got, ref))
+
+    for (h, w) in ((1080, 1920), (768, 1360)):
+        for cover in ("mid", "uniform"):
+            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            args = (frames, payload, total, DELTA, NUM_AC)
+            ref = sk.embed_and_extract_frames_packed(*args)
+            s_p, bpf_p, _ = ep.roundtrip_pipelined_packed_plain(*args)
+            notes = []
+            for n, name in names.items():
+                got = ep.roundtrip_pipelined_packed(*args, bufs=n)
+                torch.cuda.synchronize()
+                d4 = max_diff(got, ref)
+                errs[name] = max(errs[name], d4)
+                check(d4 == 0, f"K13 bufs={n} != K4 at {h}x{w} ({cover}): "
+                      f"max |diff| {d4}")
+                stego, bpf, packed = got
+                check(torch.equal(bpf, bpf_p), f"K13 bpf != plain at {h}x{w}")
+                d = (stego.to(torch.int32) - s_p.to(torch.int32)).abs()
+                flips = (d > 1).double().mean().item()
+                check(flips < STEGO_FLIP_BUDGET,
+                      f"K13 vs plain: {flips:.4%} of pixels differ by >1 at "
+                      f"{h}x{w}")
+                out = int(((_wire(sk, packed, h) != _wire(
+                    sk, sk.extract_frames_packed_plain(stego, DELTA, NUM_AC),
+                    h)) & ~_near_boundary_t(stego, DELTA, NUM_AC)).sum())
+                check(out == 0, f"K13 vs plain: {out} bits outside the "
+                      f"envelope at {h}x{w} ({cover})")
+                notes.append(f"bufs {n} >1 px {flips:.5%} max |diff| "
+                             f"{int(d.max())}")
+            print(f"phase 12 K13 {h}x{w} B=8 {cover}: == K4 (stego, bpf, "
+                  "packed) byte for byte at bufs 2, 3, 4; vs plain: bpf "
+                  "identical, bits within the envelope, " + ", ".join(notes),
+                  flush=True)
+
+    # the path's own input: emitpipe_r4's 1080p, B=128
+    frames, payload = harness.inputs(dev, 128, 1080, 1920)
+    args = (frames, payload, frames.shape[0] * payload.shape[1], DELTA,
+            NUM_AC)
+    ref = sk.embed_and_extract_frames_packed(*args)
+    for n, name in names.items():
+        for capped in (True, False):
+            got = ep.roundtrip_pipelined_packed(*args, bufs=n, capped=capped)
+            torch.cuda.synchronize()
+            d4 = max_diff(got, ref)
+            errs[name] = max(errs[name], d4)
+            check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+                  f"K13 bufs={n} capped={capped} != K4 at 128x1080x1920: "
+                  f"max |diff| {d4}")
+            del got
+    del frames, payload, ref
+    print("phase 12 K13 1080p B=128 (the study's input, some 65 tiles a "
+          "CTA): == K4 (stego, bpf, packed) byte for byte at bufs 2, 3, 4, "
+          "with and without the register cap", flush=True)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, h, w, num_ac, frac in PIPE_ODD:
+        cap = (h // 8) * (w // 8) * num_ac
+        frames = torch.from_numpy(
+            rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
+        payload = torch.from_numpy(
+            rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+        total = int(frac * b * cap) - 5
+        for f_off, p_off, delta in ((0, 0, DELTA), (8, 3, DELTA), (8, 1, 8.0),
+                                    (0, 2, 0.0), (0, 0, -4.0)):
+            fr = _misaligned(frames, f_off) if f_off else frames
+            pl = _misaligned(payload, p_off) if p_off else payload
+            args = (fr, pl, total, delta, num_ac)
+            ref = sk.embed_and_extract_frames_packed(*args)
+            for n in ep.BUFS:
+                got = ep.roundtrip_pipelined_packed(*args, bufs=n)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+                      f"K13 bufs={n} != K4 at {b}x{h}x{w} num_ac={num_ac} "
+                      f"frames+{f_off} payload+{p_off} delta={delta}")
+            if delta <= 0:
+                check(torch.equal(ref[0], frames) and not ref[2].any(),
+                      f"delta {delta}: not a passthrough at {h}x{w}")
+        tiles = b * (h // 8) * -(-(w // 8) // 128)
+        print(f"phase 12 K13 odd shape B={b} {h}x{w} num_ac={num_ac} "
+              f"(W%16={w % 16}, {(w // 8) % 128} blocks in the last chunk, "
+              f"payload ends at {total} of {b * cap} bits, {tiles} tiles, "
+              f"{tiles / sms:.1f} an SM): == K4 byte for byte at bufs 2, 3, "
+              "4, frames +0/+8 B, payload +0..3 B, delta 20, 8, 0, -4",
+              flush=True)
+
+    counts = _counts()
+    calls = {name: (lambda f, p, t, n=n: ep.roundtrip_pipelined_packed(
+        f, p, t, DELTA, NUM_AC, n)) for n, name in names.items()}
+
+    def plain(f, p, t):
+        return ep.roundtrip_pipelined_packed_plain(f, p, t, DELTA, NUM_AC)
+
+    def k4(f, p, t):
+        return sk.embed_and_extract_frames_packed(f, p, t, DELTA, NUM_AC)
+
+    times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    # K13's plain version is K4's: one time for the three ring depths
+    plain_ms, plain_q = (_time_ms(_per_set(plain, sets)),
+                         _queued_ms(_per_set(plain, sets)))
+    k4_q = _queued_ms(_per_set(k4, sets))
+    _set_counts(counts)  # timing is not a path's run
+    print(f"phase 12 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
+          f"rotating over {len(sets)} input sets, {gpu}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f", plain (K4's) {plain_ms:.4f} ms", flush=True)
+    print(f"phase 12 device times 1920x1080 B=8 (mean of 20 calls queued "
+          f"behind a sleep kernel, rotating over {len(sets)} input sets, "
+          f"{gpu}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items())
+          + f", plain (K4's) {plain_q:.4f} ms, K4 in turn {k4_q:.4f} ms",
+          flush=True)
+    for name in names.values():
+        times[f"{name}_plain"], queued[f"{name}_plain"] = plain_ms, plain_q
+
+    _set_counts()
+    t0 = time.perf_counter()
+    gbps = {}
+    for n in ep.BUFS:
+        for flags in ([], ["--uncapped"]):
+            rows = _run_main("emitpipe_r4", ep.main, [
+                "--batch", "128", "--bufs", str(n), *flags], phase=12)
+            chk, row = rows[1], rows[2]
+            check(chk.get("check") == "roundtrip_errors_vs_xla_extract"
+                  and chk["ok"] and chk["errors"] <= ep.BER_BOUND * chk["total"],
+                  f"emitpipe_r4 --bufs {n} {flags}: check row {chk}")
+            variant = f"emitpipe_buf{n}" + ("_uncapped" if flags else "")
+            check(row.get("variant") == variant and row["ms_per_128"] > 0,
+                  f"emitpipe_r4 rows {rows}")
+            gbps[variant] = row["gbps"]
+    print(f"phase 12 emitpipe_r4 1080p B=128 ({gpu}): "
+          + ", ".join(f"{k} {v:.1f} GB/s" for k, v in gbps.items()),
+          flush=True)
+    rows = _run_main("roofline_r4", rr.main, [
+        "--batch", "128", "--iters", "3", "--variants",
+        "fused,fused_buf3,fused_buf4"], phase=12)
+    timed = {r["variant"] for r in rows[1:] if "ms_per_batch" in r}
+    check(timed == {"fused", "fused_buf3", "fused_buf4"},
+          f"roofline_r4 did not time K13's rows: {rows}")
+    launches = {name: getattr(ep, f"PIPE_BUF{n}_LAUNCHES")
+                for n, name in names.items()}
+    check(all(v > 0 for v in launches.values()),
+          f"the path did not launch K13 at every bufs: {launches}")
+    print(f"phase 12 path: PIPE_BUF2_LAUNCHES={launches[names[2]]} "
+          f"PIPE_BUF3_LAUNCHES={launches[names[3]]} PIPE_BUF4_LAUNCHES="
+          f"{launches[names[4]]}; {time.perf_counter() - t0:.1f} s host clock",
+          flush=True)
+    return errs, launches, times, queued
+
+
+def _cli_run(*argv) -> tuple[int, str, str]:
+    """stegotpu_torch.cli.main(argv) in this process: (exit code, stdout,
+    stderr), each output line echoed under phase 13."""
+    import io
+
+    from stegotpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(argv))
+    seconds = time.perf_counter() - t0
+    for stream, text in (("out", out.getvalue()), ("err", err.getvalue())):
+        for line in text.splitlines():
+            print(f"phase 13 {argv[0]} {stream}: {line}", flush=True)
+    print(f"phase 13 {' '.join(argv)}: exit {rc}, {seconds:.2f} s host clock",
+          flush=True)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _cli() -> None:
+    """Phase 13: the port's command line at full width, in process, on the
+    card, in a temporary directory: fixtures (1920x1080, 12 frames, a
+    256x256 secret that fills more than a frame), genkey, embed and extract
+    with --timing (the secret back pixel-identical, SHA3 OK, K1 and K2
+    launched), inspect --json (the header embed wrote), steganalyze --json
+    (stego-likely, delta 20, num_ac 10), capacity --json (324,000 bits a
+    frame), evaluate, selftest and bench (its JSON line, exactness_ok).
+    cryptography, Pillow and cv2 are required here: a missing one fails
+    the phase."""
+    import numpy as np
+
+    from stegotpu_torch.image import load_image_gray
+    from stegotpu_torch.ops import stripe_kernel as sk
+
+    def ok(*argv) -> tuple[str, str]:
+        rc, out, err = _cli_run(*argv)
+        check(rc == 0, f"cli {' '.join(argv)} exited {rc}: {err[-2000:]}")
+        return out, err
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        ok("fixtures", "--dir", "media", "--width", "1920", "--height",
+           "1080", "--frames", "12", "--secret-size", "256")
+        ok("genkey")
+        _set_counts()
+        out, _ = ok("embed", "media/cover.mp4", "media/secret.png",
+                    "out/stego", "--timing")
+        m = re.search(r"embedded (\d+) bits", out)
+        check(m is not None, f"embed printed no bit count: {out}")
+        total_bits = int(m.group(1))
+        out, _ = ok("extract", "out/stego.avi", "out/extracted.png",
+                    "--timing")
+        check("SHA3-256 integrity: OK" in out, f"extract: {out}")
+        check(np.array_equal(load_image_gray("out/extracted.png"),
+                             load_image_gray("media/secret.png")),
+              "cli: the secret is not pixel-identical")
+        check(sk.EMBED_LAUNCHES > 0 and sk.EXTRACT_LAUNCHES > 0,
+              f"cli embed/extract launched EMBED_LAUNCHES={sk.EMBED_LAUNCHES}"
+              f" EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}")
+        print(f"phase 13 embed -> extract 1920x1080: pixel-identical, SHA3 "
+              f"OK; EMBED_LAUNCHES={sk.EMBED_LAUNCHES} EXTRACT_LAUNCHES="
+              f"{sk.EXTRACT_LAUNCHES}", flush=True)
+
+        ins = json.loads(ok("inspect", "out/stego.avi", "--json")[0])
+        check((ins["width"], ins["height"], ins["payload_type"],
+               ins["secret_width"], ins["secret_height"],
+               ins["ciphertext_bytes"], ins["total_payload_bits"],
+               ins["capacity_bits_per_frame"])
+              == (1920, 1080, "image", 256, 256, 256 * 256, total_bits,
+                  324_000), f"inspect: {ins}")
+        stz = json.loads(ok("steganalyze", "out/stego.avi", "--json")[0])
+        check(stz["verdict"] == "stego-likely"
+              and (stz["estimated_delta"], stz["estimated_num_ac"]) == (20, 10),
+              f"steganalyze: {stz}")
+        cap = json.loads(ok("capacity", "media/cover.mp4", "--json")[0])
+        check(cap["qim_bits_per_frame"] == 324_000, f"capacity: {cap}")
+        out, _ = ok("evaluate", "media/cover.mp4", "out/stego.avi", "--secret",
+                    "media/secret.png", "--extracted", "out/extracted.png",
+                    "--all-frames")
+        check("SSIM" in out and "security" in out, f"evaluate: {out}")
+        out, _ = ok("selftest", "--dir", "selftest")
+        check("SELFTEST PASSED" in out and "kernel exactness: OK" in out,
+              f"selftest: {out}")
+        out, _ = ok("bench")
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        check(len(lines) == 1, f"bench printed {len(lines)} lines")
+        row = json.loads(lines[0])
+        check(row.get("exactness_ok") is True and row.get("value", 0) > 0
+              and "error" not in row, f"bench: {row}")
+        print(f"phase 13 bench ({row['gpu']}): {json.dumps(row)}", flush=True)
 
 if __name__ == "__main__":
     try:

@@ -153,13 +153,16 @@ def load_library() -> ctypes.CDLL:
         lib.stegotpu_qim_roundtrip_dual.argtypes = [p, p, p, p, p, i, i, i,
                                                     i, i, i64, i, i, f, p]
         lib.stegotpu_copy.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.stegotpu_qim_roundtrip_pipe.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                    i, i, i, i64, i, i, f, p]
         for name in ("stegotpu_qim_embed", "stegotpu_qim_extract_packed",
                      "stegotpu_qim_extract_rows",
                      "stegotpu_qim_roundtrip_packed",
                      "stegotpu_qim_roundtrip_rows", "stegotpu_qim_embed_check",
                      "stegotpu_kron_embed", "stegotpu_kron_extract",
                      "stegotpu_qim_ablation", "stegotpu_qim_embed_packedin",
-                     "stegotpu_qim_roundtrip_dual", "stegotpu_copy"):
+                     "stegotpu_qim_roundtrip_dual", "stegotpu_copy",
+                     "stegotpu_qim_roundtrip_pipe"):
             getattr(lib, name).restype = i
         lib.stegotpu_cuda_error_string.argtypes = [i]
         lib.stegotpu_cuda_error_string.restype = ctypes.c_char_p

@@ -232,6 +232,21 @@ def _bits_per_frame(b: int, cap: int, total_bits: int, bit_offset: int,
     return first.clamp(0, cap).to(torch.int32)
 
 
+def slot_valid(b: int, nb: int, num_ac: int, total_bits: int,
+               bit_offset: int, device) -> torch.Tensor:
+    """(B, nb, num_ac) bool: the payload slots an embed writes. Slot j of
+    block n of frame f is valid when j < rem, where rem = total_bits -
+    bit_offset - f*C - n*num_ac (C = nb*num_ac, int64) is the number of
+    payload bits left at the block's first slot: the rule of every stripe
+    kernel (`rem` in csrc/qim_stripe.cu)."""
+    rem = (total_bits - bit_offset
+           - torch.arange(b, dtype=torch.int64, device=device)[:, None]
+           * (nb * num_ac)
+           - torch.arange(nb, dtype=torch.int64, device=device)[None, :]
+           * num_ac)[..., None]                         # bits left at block start
+    return torch.arange(num_ac, device=device) < rem
+
+
 def _qim_sparse_delta(ys: torch.Tensor, bits: torch.Tensor,
                       valid: torch.Tensor, delta: float) -> torch.Tensor:
     """Directional-parity QIM + lattice snap as a sparse coefficient delta:
@@ -265,12 +280,7 @@ def embed_frames_plain(frames: torch.Tensor, payload_bits: torch.Tensor,
     xb = blockify(frames.to(torch.float32))            # (b, nb, 64)
     ks = kron_dct_tensor(frames.device)[1 : 1 + num_ac]  # (num_ac, 64)
     y = xb @ ks.T                                       # slot coefficients
-    rem = (total_bits - bit_offset
-           - torch.arange(b, dtype=torch.int64, device=frames.device)[:, None]
-           * cap
-           - torch.arange(nb, dtype=torch.int64, device=frames.device)[None, :]
-           * num_ac)[..., None]                         # bits left at block start
-    valid = torch.arange(num_ac, device=frames.device) < rem
+    valid = slot_valid(b, nb, num_ac, total_bits, bit_offset, frames.device)
     bits = payload_bits.reshape(b, nb, num_ac).to(torch.float32)
     dy = _qim_sparse_delta(y, bits, valid, delta)
     # dy == 0 for never-entered blocks -> exact passthrough of x

@@ -6,7 +6,7 @@ device as ``torch.from_numpy(...).to(device)`` and come back as
 ``.cpu().numpy()``, on the ``device`` the caller names (no global device
 guessing). The verified embed runs the CUDA kernel K3 through
 ops/verified.py. The mesh branches are not ported yet and raise
-NotImplementedError; ``inspect_stego_header`` is not ported yet.
+NotImplementedError.
 
 Same observable semantics as the reference's L3 orchestration
 (``embed_gambar_ke_video_final`` embed_process.py:17-152,
@@ -761,6 +761,76 @@ def finalize_extract(parts: PayloadParts, receiver_private, output_image,
         out_path = str(output_image)
     return ExtractResult(True, pixels=pixels, hash_ok=hash_ok, parts=parts,
                          output_path=out_path, frames_read=frames_read)
+
+
+def inspect_stego_header(
+    stego_video: str | Path,
+    config: StegoConfig = StegoConfig(),
+    device=None,
+) -> dict:
+    """Parse a stego video's embedded header WITHOUT decrypting.
+
+    Returns the public payload fields (everything the format reveals to
+    someone who knows delta/num_ac but holds no key) as a dict, the JAX
+    package's (stegotpu/pipeline.py:825-890): the one implementation
+    behind `inspect`. Frames are extracted one at a time on `device` (None:
+    the card) through the dispatch's extract, and the scan stops once the
+    header parses or max_header_bits have been read. Raises ValueError
+    when no header parses (wrong delta/coeffs or not a stego video).
+    """
+    device = resolve_device(device)
+    cfg = config
+    with VideoReader(stego_video) as reader:
+        h8, w8 = reader.info.cropped
+        if h8 == 0 or w8 == 0:
+            # same guard as extract_image_from_video: a sub-8px video would
+            # otherwise fail with a backend-dependent crop error (native) or
+            # scan every frame at 0 bits each (cv2) before failing
+            raise ValueError("video dimensions too small (no full 8x8 block)")
+        cap_bits = cfg.frame_capacity_bits(h8, w8)
+        if cap_bits == 0:
+            raise ValueError(
+                "zero embedding capacity per frame for these parameters")
+        extract = extract_fn(cfg.kernel, h8, w8, cfg.qim_precision)
+        collected: list[np.ndarray] = []
+        collected_bits = 0
+        parsed = None
+        # bound the scan: a non-stego video must not be decoded end to end
+        limit = payload_mod.max_header_bits(cfg.dims_bits)
+        for gray in reader.batches(1, mode="gray"):
+            bits = extract(_to_device(gray, device), float(cfg.delta),
+                           cfg.num_ac_coeffs).cpu().numpy().reshape(-1)
+            collected.append(bits)
+            collected_bits += bits.size
+            try:
+                parsed = payload_mod.parse_header_bits(
+                    np.concatenate(collected), cfg.dims_bits)
+                break
+            except NeedMoreBits:
+                if collected_bits >= limit:
+                    break
+                continue  # tiny frames: header spans several
+        if parsed is None:
+            raise ValueError(
+                "no parseable payload header (wrong delta/coeffs or not a "
+                "stego video)")
+        parts, ct_len, header_bits = parsed
+        total_bits = header_bits + 8 * ct_len
+        return {
+            "width": reader.info.width, "height": reader.info.height,
+            "fps": reader.info.fps, "capacity_bits_per_frame": cap_bits,
+            "delta": cfg.delta, "num_ac_coeffs": cfg.num_ac_coeffs,
+            "payload_type": "raw_data" if parts.is_raw_data else "image",
+            "secret_width": parts.secret_width,
+            "secret_height": parts.secret_height,
+            "sender_pub_bytes": len(parts.sender_pub_compressed),
+            "sender_pub_prefix": parts.sender_pub_compressed[:1].hex(),
+            "hkdf_salt_bytes": len(parts.hkdf_salt),
+            "nonce_bytes": len(parts.nonce), "tag_bytes": len(parts.tag),
+            "sha3_256": parts.sha3_hash.hex(),
+            "ciphertext_bytes": ct_len, "total_payload_bits": total_bits,
+            "payload_frames": -(-total_bits // cap_bits),
+        }
 
 
 # Array-level API (no container round-trip) -----------------------------------

@@ -26,12 +26,16 @@ _TRANSFORMS = {
     "ablation_full": 1, "ablation_no_qim": 1, "ablation_full_notrunc": 1,
 }
 
+# K13 computes K4's function through a ring of 2, 3 or 4 tiles: K4's work
+_SAME_WORK = {f"roundtrip_pipe_buf{n}": "roundtrip_packed" for n in (2, 3, 4)}
+
 
 def work(kernel: str, b: int, h: int, w: int, num_ac: int,
          stripe: int) -> tuple[int, int]:
     """(bytes, f32 operations) of one call of `kernel` on B frames of HxW
     at num_ac slots, with the packed and unpacked rows laid out by
     `stripe`. Kernel names are those of chip_smoke.py's kernels line."""
+    kernel = _SAME_WORK.get(kernel, kernel)
     rn = num_ac // 8 + 1
     rp = -(-(stripe // 8) * rn // 8) * 8
     blocks = b * (h // 8) * (w // 8)

@@ -14,11 +14,13 @@ Counterpart of ``benchmarks/roofline_r4.py``. Its DMA-only variants
 
 The study's ``embed`` and ``fused`` variants call the port's K1 and K4;
 ``fused_s216`` and ``fused_s360`` run K4 with that stripe passed
-explicitly; the others run at ``pick_stripe`` of the height. A variant
-whose stripe does not divide the height prints an error row, and the
-study exits 1. The JAX variants ``fused_pp``, ``fused_arb``, ``fused_cost``
-and ``fused_buf3``/``fused_buf4`` set Mosaic compiler options; each is
-printed as a row with ``"counterpart": null`` and the reason.
+explicitly; ``fused_buf3`` and ``fused_buf4`` (K4 with Mosaic's pipeline
+buffer count 3 and 4) run K13, the round trip through a ring of 3 and 4
+tiles (studies/emitpipe_r4.py); the others run at ``pick_stripe`` of the
+height. A variant whose stripe does not divide the height prints an error
+row, and the study exits 1. The JAX variants ``fused_pp``, ``fused_arb``
+and ``fused_cost`` set Mosaic compiler options; each is printed as a row
+with ``"counterpart": null`` and the reason.
 ``COPY_LAUNCHES`` and ``DMASPEC_LAUNCHES`` count the launches.
 ``python -m stegotpu_torch.studies.roofline_r4`` times each variant on the
 card (defaults: the script's B=128 at 1080x1920; at B=128 the working set
@@ -27,6 +29,7 @@ is some 580 MB, far beyond the 50 MB L2).
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
@@ -34,7 +37,7 @@ import torch
 from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.stripe_kernel import payload_to_rows_packed
-from stegotpu_torch.studies import bounds, harness
+from stegotpu_torch.studies import bounds, emitpipe_r4, harness
 
 COPY_LAUNCHES = 0
 DMASPEC_LAUNCHES = 0
@@ -53,8 +56,8 @@ GRID = [
     ("fused_arb", None, None),
     ("fused_s216", 216, "roundtrip_packed"),
     ("fused_s360", 360, "roundtrip_packed"),
-    ("fused_buf3", None, None),
-    ("fused_buf4", None, None),
+    ("fused_buf3", None, "roundtrip_pipe_buf3"),
+    ("fused_buf4", None, "roundtrip_pipe_buf4"),
 ]
 
 NO_COUNTERPART = {
@@ -66,10 +69,6 @@ NO_COUNTERPART = {
                  "axis to mark",
     "fused_cost": "pl.CostEstimate is a hint to XLA's scheduler around a "
                   "pallas_call; no CUDA launch reads one",
-    "fused_buf3": "Mosaic pipeline buffer count 3: K4 has no software "
-                  "pipeline; the buffer depth returns with K13's copy ring",
-    "fused_buf4": "Mosaic pipeline buffer count 4: K4 has no software "
-                  "pipeline; the buffer depth returns with K13's copy ring",
 }
 
 
@@ -152,6 +151,9 @@ def variant_call(kernel: str, stripe: int, frames: torch.Tensor,
                                          num_ac),
         "roundtrip_packed": lambda: sk.embed_and_extract_frames_packed(
             frames, payload, total, delta, num_ac, stripe=stripe),
+        **{f"roundtrip_pipe_buf{n}": functools.partial(
+            emitpipe_r4.roundtrip_pipelined_packed, frames, payload, total,
+            delta, num_ac, n, stripe) for n in emitpipe_r4.BUFS},
     }[kernel]
     nbytes, _ = bounds.work(kernel, b, h, w, num_ac, stripe)
     return fn, nbytes / b

@@ -543,3 +543,57 @@ def test_entry_points_default_to_the_card(dev):
     after = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
              sk.EXTRACT_ROWS_LAUNCHES)
     assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+def _misaligned(x, offset):
+    """A contiguous copy of x whose storage starts `offset` bytes past an
+    allocation's start, so its rows (or its payload) lose 16-byte
+    alignment."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = flat[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# the odd shapes of K13's ring: W % 16 != 0 (1048, 136), block columns that
+# are no multiple of the 128-block chunk (131, 17), odd num_ac (the payload
+# chunks lose 4-byte alignment), a payload that ends mid-frame. At the small
+# batches each CTA walks at most one tile; at the large ones (and at the
+# 1080p B=128 of the study) the tiles outnumber the resident CTAs many times
+# over, so every ring slot is refilled again and again.
+PIPE_SHAPES = [(3, 48, 1048, 10, 0.7), (2, 40, 136, 1, 1.0),
+               (2, 64, 64, 63, 0.5), (4, 96, 1360, 7, 0.3),
+               (2, 1080, 1920, 10, 1.0), (512, 96, 1360, 7, 0.3),
+               (512, 48, 1048, 10, 0.7), (2048, 40, 136, 1, 1.0),
+               (2048, 64, 64, 63, 0.5), (128, 1080, 1920, 10, 1.0)]
+
+
+@pytest.mark.parametrize("capped", [True, False])
+@pytest.mark.parametrize("bufs", [2, 3, 4])
+@pytest.mark.parametrize("b,h,w,num_ac,frac", PIPE_SHAPES)
+def test_pipe_kernel_is_k4(dev, b, h, w, num_ac, frac, bufs, capped):
+    """K13 (the cp.async ring) is K4 byte for byte: stego, bits per frame
+    and packed bits, at every ring depth, with and without its register
+    cap, on the odd shapes, with frames 8 bytes and a payload 1-3 bytes off
+    16-byte alignment, and at delta <= 0 (every block passes through, every
+    bit reads 0)."""
+    from stegotpu_torch.studies import emitpipe_r4 as ep
+
+    frames, payload, _ = _cover(dev, "mid", b, h, w, num_ac, seed=num_ac)
+    cap = payload.shape[1]
+    total = int(frac * b * cap) - 5
+    for f_off, p_off, delta in ((0, 0, 20.0), (8, 3, 20.0), (8, 1, 8.0),
+                                (0, 2, 0.0), (0, 0, -4.0)):
+        fr = _misaligned(frames, f_off) if f_off else frames
+        pl = _misaligned(payload, p_off) if p_off else payload
+        args = (fr, pl, total, delta, num_ac)
+        counter = f"PIPE_BUF{bufs}_LAUNCHES"
+        before = getattr(ep, counter)
+        got = ep.roundtrip_pipelined_packed(*args, bufs=bufs, capped=capped)
+        assert getattr(ep, counter) == before + 1
+        ref = sk.embed_and_extract_frames_packed(*args)
+        torch.cuda.synchronize()
+        for a, c in zip(got, ref):
+            assert torch.equal(a, c), (f_off, p_off, delta)
+        if delta <= 0:
+            assert torch.equal(got[0], frames) and not got[2].any()

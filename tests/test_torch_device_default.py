@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from stegotpu_torch import crypto, evaluation, pipeline
+from stegotpu_torch import crypto, evaluation, pipeline, steganalysis
 from stegotpu_torch.config import StegoConfig
 from stegotpu_torch.device import resolve_device
 from stegotpu_torch.ops import exactness
@@ -49,6 +49,14 @@ ENTRY_POINTS = {
     "check_config": lambda out: exactness.check_config(
         1, 16, 16, 10, [20.0], np.random.default_rng(0), verbose=False),
     "quick_exactness_check": lambda out: exactness.quick_exactness_check(),
+    "inspect_stego_header": lambda out: pipeline.inspect_stego_header(
+        GOLDEN / "ref_stego.avi"),
+    "analyze_frames": lambda out: steganalysis.analyze_frames(
+        np.full((1, 16, 16), 128, np.uint8)),
+    "estimate_num_ac": lambda out: steganalysis.estimate_num_ac(
+        np.full((1, 16, 16), 128, np.uint8), 20.0),
+    "recover_params": lambda out: steganalysis.recover_params(
+        GOLDEN / "ref_stego.avi", StegoConfig()),
 }
 
 

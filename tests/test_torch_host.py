@@ -39,9 +39,10 @@ GOLDEN = REPO / "tests" / "golden"
 def test_import_needs_only_torch_numpy_scipy():
     """Importing the pipeline, every kernel module, the verified embed, the
     exactness harness, the fixtures, the GPU check tool, the metrics, the
-    evaluation suite, the experimental kernels and every study module
-    succeeds with jax, stegotpu, cryptography, PIL and cv2 blocked, and
-    leaves no jax module behind."""
+    evaluation suite, the experimental kernels, every study module, the
+    CLI, steganalysis, the benchmark and the utilities succeeds with jax,
+    stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax module
+    behind."""
     code = """
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
@@ -57,10 +58,12 @@ import stegotpu_torch.metrics, stegotpu_torch.evaluation
 import stegotpu_torch.ops.experimental.qim_fast
 import stegotpu_torch.ops.experimental.kron_kernel
 import stegotpu_torch.ops._build
+import stegotpu_torch.cli, stegotpu_torch.steganalysis, stegotpu_torch.benchmark
+import stegotpu_torch.utils.logging, stegotpu_torch.utils.profiling
 import stegotpu_torch.studies
 studies = [m.name for m in pkgutil.iter_modules(stegotpu_torch.studies.__path__)]
 assert {"extract_ablation", "ab_packed_payload", "dualchain_r5",
-        "roofline_r4", "device_roofline"} <= set(studies), studies
+        "roofline_r4", "device_roofline", "emitpipe_r4"} <= set(studies), studies
 for name in studies:
     importlib.import_module("stegotpu_torch.studies." + name)
 bad = sorted(m for m in sys.modules
@@ -289,3 +292,26 @@ def test_fixtures_equal(tmp_path):
         t = frames(tmp_path / f"t_{kind}.mp4")
         assert t.shape == (5, 48, 64, 3)
         np.testing.assert_array_equal(t, frames(tmp_path / f"j_{kind}.mp4"))
+
+
+def test_profiling_stage_timer_and_trace(tmp_path):
+    """StageTimer is the JAX package's (the same report for the same stage
+    totals); device_trace writes a Chrome trace that holds an annotate
+    range."""
+    from stegotpu.utils import profiling as jprof
+    from stegotpu_torch.utils import profiling as tprof
+
+    reports = []
+    for mod in (jprof, tprof):
+        timer = mod.StageTimer()
+        with timer.stage("decode"):
+            pass
+        timer.totals.update(decode=0.5, encode=1.25)
+        timer.counts.update(encode=5)
+        reports.append(timer.report())
+    assert reports[0] == reports[1]
+    assert reports[1].splitlines()[0].startswith("encode: 1.250s total")
+    with tprof.device_trace(tmp_path / "trace"):
+        with tprof.annotate("stegotpu-span"):
+            torch.ones(4).sum()
+    assert "stegotpu-span" in (tmp_path / "trace" / "trace.json").read_text()

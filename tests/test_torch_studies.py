@@ -456,7 +456,8 @@ def test_roofline_main_rows_at_a_height_120_does_not_divide(monkeypatch,
                              "144", "--width", "64"]) == 1
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     timed = {r["variant"]: r["stripe"] for r in rows if "ms_per_batch" in r}
-    assert timed == dict.fromkeys(("copy", "dmaspec", "fused", "embed"), 72)
+    assert timed == dict.fromkeys(("copy", "dmaspec", "fused", "embed",
+                                   "fused_buf3", "fused_buf4"), 72)
     assert {r["variant"] for r in rows if "error" in r} == {"fused_s216",
                                                             "fused_s360"}
     assert {r["variant"] for r in rows if r.get("counterpart", 0) is None} \

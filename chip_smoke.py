@@ -8,7 +8,10 @@ PyTorch built for CUDA:
 
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
-study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu) and runs
+study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
+kernel's registers and spills (ptxas) and the opcode counts of K1, K2 and
+K4 from cuobjdump -sass of the library (failing if K1's or K2's Hopper
+arithmetic holds a conversion instruction or a shared load), and runs
 thirteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
@@ -16,7 +19,7 @@ thirteen phases:
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
 4.   every kernel's time and its plain version's, with CUDA events
-     (K1-K8);
+     (K1-K8), and K1's and K2's share of their bound;
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -39,7 +42,8 @@ thirteen phases:
      against K5, K1, K4, the frames and payload_to_rows_packed with zero
      tolerance and against their plain versions; their times; then the path
      of the four kernels: every study's main at 1080p, and one roofline
-     pass at B=128 (a working set far beyond the 50 MB L2);
+     pass at B=128 (a working set far beyond the 50 MB L2); the device
+     timeline must show a K1 call as one kernel and nothing else;
 12.  K13 (the fused round trip through a cp.async ring of 2, 3 or 4 tiles)
      against K4 with zero tolerance at 1080p and 768p (B=8), at the
      study's 1080p B=128 and on odd shapes, some at batches where the
@@ -56,8 +60,10 @@ is a JSON object with each kernel's route, source, launches on its path,
 error and times: "ms"/"plain_ms" the median CUDA-event time of one call
 (host time where the host side outlasts the device work),
 "device_ms"/"plain_device_ms" the device time per call with the host
-queued ahead, "bound_ms"/"bound_by" the least time an H100 SXM could take
-for the call at the published peaks (studies/bounds.py), "library_ms" the
+queued ahead (null where the host fell behind the queue in every try, so
+that the reading holds host gaps), "bound_ms"/"bound_by" the least time
+an H100 SXM could take for the call at the published peaks
+(studies/bounds.py), "library_ms" the
 time of the one PyTorch call that computes the same function, where there
 is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
 {"ok": true, "device": {...}}.
@@ -124,35 +130,40 @@ def _ptxas_summary(log: str) -> str:
     -Xptxas=-v report: 'embed<2>:128r/0s(max 168r/0s) ...' for the stripe
     and study kernels, the instantiation of the default num_ac=10 (rn=2,
     or the only rn a kernel has) and the largest over rn=1..8, with one
-    entry per K9 variant ('ablation_no_qim<2>:...') and per K13 ring depth,
-    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...');
+    entry per K9 variant ('ablation_no_qim<2>:...'), per K13 ring depth,
+    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1/K2
+    arithmetic and register cap ('extract_packed<2>' the Hopper
+    arithmetic, 'embed_minb8<2>' K1's with __launch_bounds__(128, 8) at
+    rn <= 2, 'embed<3>' without the cap above, 'embed_small_delta_minb8<2>'
+    the build for 0 < delta < 2^-10);
     'kron_embed:64r/0s' and 'copy:16r/0s' for the kernels with one
     instantiation."""
+    from stegotpu_torch.studies import sass
+
     per: dict[str, dict[int, tuple[int, int]]] = {}
-    name, rn, spill = None, 0, 0
-    for line in log.splitlines():
-        m = re.search(r"\d(qim_[a-z_]+|kron_[a-z]+|copy)_kernel"
-                      r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", line)
-        if m and "Compiling entry" in line:
-            kind, a1, a2, a3 = m.groups()
-            spill = 0
-            if kind == "copy":  # copy_kernel<V>: V is the variant
-                name, rn = ("copy", "dmaspec")[int(a1)], 0
-            elif kind == "qim_roundtrip_pipe":  # <RN, BUFS, MINB>
-                name, rn = f"roundtrip_pipe_buf{a2}", int(a1)
-                if rn <= 2 and a3 == "1":  # the build without the cap
-                    name += "_uncapped"
-            elif a2 is not None:  # qim_ablation_kernel<RN, V>
-                name, rn = f"ablation_{ABLATIONS[int(a2)]}", int(a1)
-            else:
-                name, rn = kind.removeprefix("qim_"), int(a1 or 0)
-        m2 = re.search(r"(\d+) bytes spill stores", line)
-        if m2 and name:
-            spill = int(m2.group(1))
-        m3 = re.search(r"Used (\d+) registers", line)
-        if m3 and name:
-            per.setdefault(name, {})[rn] = (int(m3.group(1)), spill)
-            name = None
+    for label, regs in sass.ptxas(log).items():
+        m = re.fullmatch(r"(\w+?)_kernel(?:<(.*)>)?", label)
+        if m is None:
+            continue
+        kind = m.group(1).removeprefix("qim_")
+        args = m.group(2).split(", ") if m.group(2) else []
+        rn = int(args[0]) if args and kind != "copy" else 0
+        if kind == "copy":  # copy_kernel<V>: V is the variant
+            name = ("copy", "dmaspec")[int(args[0])]
+        elif kind == "roundtrip_pipe":  # <RN, BUFS, MINB>
+            name = f"roundtrip_pipe_buf{args[1]}"
+            if rn <= 2 and args[2] == "1":  # the build without the cap
+                name += "_uncapped"
+        elif kind == "ablation":  # <RN, V>
+            name = f"ablation_{ABLATIONS[int(args[1])]}"
+        elif len(args) >= 2:  # K1 <RN, Arith, MINB>, K2 <RN, Arith>
+            name = kind + ("_small_delta" if args[1].endswith("SmallDelta")
+                           else "")
+            if args[2:] and args[2] != "1":
+                name += f"_minb{args[2]}"
+        else:
+            name = kind
+        per.setdefault(name, {})[rn] = regs
     out = []
     for kernel, by_rn in sorted(per.items()):
         if set(by_rn) == {0}:
@@ -164,6 +175,39 @@ def _ptxas_summary(log: str) -> str:
                    f"{max(r for r, _ in by_rn.values())}r/"
                    f"{max(s for _, s in by_rn.values())}s)")
     return " ".join(out)
+
+
+# conversion and shared-memory opcodes that K1's and K2's Hopper
+# arithmetic (ArithHopper, delta >= 2^-10) leaves out of their SASS
+NO_SLOW_PIPE = ("I2F", "I2FP", "F2I", "FRND", "LDS")
+# what is left, and why: K2's packed layout divides the block row by the
+# stripe's block rows (group_row in csrc/qim_common.cuh), an integer
+# division whose reciprocal takes one I2F and one F2I a thread, outside
+# the block arithmetic
+SLOW_PIPE_LEFT = {"qim_extract_packed_kernel": {"I2F": 1, "F2I": 1}}
+
+
+def _sass_counts(lib) -> None:
+    """Print the opcode counts of K1, K2 and K4 (rn=2) from cuobjdump -sass
+    of the built library (studies/sass.py), and fail if an ArithHopper
+    build of K1 or K2 holds a conversion instruction or a shared load."""
+    from stegotpu_torch.studies import sass
+
+    rows = sass.rows(lib)
+    print("sass (cuobjdump -sass of the built library, rn=2; I2F/I2FP/F2I/"
+          "FRND conversions, MUFU reciprocals, FCHK divide checks, LDS "
+          "shared loads, FFMA and those with an immediate or a constant-"
+          "bank operand, PRMT byte permutes): "
+          + sass.summary(rows), flush=True)
+    fast = [r for r in rows if re.search(r", ArithHopper\b", r["kernel"])]
+    check(len(fast) >= 2, f"no ArithHopper build of K1/K2 in the SASS: {rows}")
+    bad = {}
+    for r in fast:
+        left = SLOW_PIPE_LEFT.get(r["kernel"].split("<")[0], {})
+        over = {k: r[k] for k in NO_SLOW_PIPE if r[k] > left.get(k, 0)}
+        if over:
+            bad[r["kernel"]] = over
+    check(not bad, f"K1/K2 ArithHopper builds hold slow-pipe instructions: {bad}")
 
 
 def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
@@ -190,12 +234,29 @@ def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _queued_ms(fns, runs: int = 20, warmup: int = 3) -> float:
-    """Device time of one call, queued behind a sleep kernel, rotating over
-    the input sets of `fns` (studies/harness.queued_ms)."""
-    from stegotpu_torch.studies.harness import queued_ms
+# label -> (readings taken again, kept behind) where harness.queued_ms had
+# to take a reading again because the host fell behind its sleep kernel
+RETAKEN: dict[str, tuple[int, int]] = {}
 
-    return queued_ms(fns, runs, warmup)
+
+def _queued_ms(fns, label: str, runs: int = 20, warmup: int = 3) -> float:
+    """Device time of one call, queued behind a sleep kernel, rotating over
+    the input sets of `fns` (studies/harness.queued_ms); notes in RETAKEN
+    the readings of `label` that were taken again."""
+    from stegotpu_torch.studies import harness
+
+    before = harness.RETAKES, harness.BEHIND
+    ms = harness.queued_ms(fns, runs, warmup)
+    if harness.RETAKES > before[0]:
+        RETAKEN[label] = (harness.RETAKES - before[0],
+                          harness.BEHIND - before[1])
+    return ms
+
+
+def _device_ms(label: str, ms: float) -> float | None:
+    """ms, or None where the reading of `label` was kept although the host
+    fell behind the sleep kernel in every try: it then holds host gaps."""
+    return None if RETAKEN.get(label, (0, 0))[1] else ms
 
 
 def _cold_sets(dev, rng) -> list:
@@ -316,6 +377,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s nvcc "
           f"{' '.join(_build.NVCC_FLAGS)} ptxas {_ptxas_summary(log)}",
           flush=True)
+    _sass_counts(_build.library_path())
 
     rng = np.random.default_rng(20261016)
     embed_err = 0
@@ -455,7 +517,7 @@ def main() -> int:
         "kron_extract_plain": extract_args(kk.extract_frames_kron_plain),
     }
     times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
-    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets), k) for k, fn in calls.items()}
     _set_counts(counts)  # timing is not a path's run
     cold = (f"rotating over {len(sets)} input sets of "
             f"{sum(f.numel() + p.numel() for f, p, _ in sets) >> 20} MiB")
@@ -465,6 +527,14 @@ def main() -> int:
     print(f"phase 4 device times 1920x1080 B=8 (mean of 20 calls queued "
           f"behind a sleep kernel, {cold}, {gpu}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items()), flush=True)
+    from stegotpu_torch.studies import bounds
+
+    for k, kn in (("embed", "K1"), ("extract_packed", "K2")):
+        bound, by = bounds.bound_ms(*bounds.work(k, 8, 1080, 1920, NUM_AC,
+                                                 sk.pick_stripe(1080)))
+        print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
+              f"device_ms {queued[k]:.4f} bound_ms {bound:.5f} ({by}) share "
+              f"{bound / queued[k]:.1%}", flush=True)
 
     # phase 5: file to file, where the host libraries are installed
     libs = {m: importlib.util.find_spec(m) is not None
@@ -505,8 +575,6 @@ def main() -> int:
     queued.update(queued12)
     _cli()                                                    # phase 13
 
-    from stegotpu_torch.studies import bounds
-
     stripe = ("stegotpu_torch/csrc/qim_stripe.cu", "stegotpu/ops/pallas_kernel.py")
     kron = ("stegotpu_torch/csrc/qim_kron.cu",
             "stegotpu/ops/experimental/pallas_kron.py")
@@ -540,9 +608,20 @@ def main() -> int:
             "ms": times[k], "plain_ms": times[f"{k}_plain"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library.get(k),
-            "device_ms": queued[k], "plain_device_ms": queued[f"{k}_plain"]})
+            "device_ms": _device_ms(k, queued[k]),
+            "plain_device_ms": _device_ms(
+                "K13 plain" if k.startswith("roundtrip_pipe") else f"{k}_plain",
+                queued[f"{k}_plain"])})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
+    from stegotpu_torch.studies import harness
+
+    studies = harness.RETAKES - sum(n for n, _ in RETAKEN.values())
+    print("queued readings taken again because the host fell behind the "
+          f"sleep kernel (studies/harness.queued_ms): {harness.RETAKES}, "
+          f"kept behind after three tries {harness.BEHIND}; "
+          + ", ".join(f"{k} {n} ({b} kept behind)" for k, (n, b) in RETAKEN.items())
+          + f"; the studies' own {studies}", flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1260,11 +1339,11 @@ def _studies(dev, rng, gpu: str, sets: list):
                                                                    NUM_AC),
     })
     times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
-    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets), k) for k, fn in calls.items()}
     # the yardstick of K12 copy: one PyTorch call, never on a path
     copy_ = _per_set(lambda f, x, q, p, t, d: d.copy_(f), sets)
     library = {"copy": _time_ms(copy_)}
-    library_queued = _queued_ms(copy_)
+    library_queued = _queued_ms(copy_, "library copy_")
     _set_counts(counts)
     cold = f"rotating over {len(sets)} input sets"
     print(f"phase 11 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
@@ -1308,6 +1387,13 @@ def _studies(dev, rng, gpu: str, sets: list):
           f"the studies did not launch every study kernel: {launches}")
     check(all("kernel_ms_each" in r for r in rows[1:]),
           f"device_roofline read no kernel from the timeline: {rows}")
+    embed_row = [r for r in rows[1:] if r["variant"] == "embed"]
+    check(len(embed_row) == 1 and embed_row[0]["glue_top"] == [],
+          f"device_roofline: a K1 call is more than its kernel: {embed_row}")
+    print("phase 11 device_roofline embed B=8: one kernel a call, no glue "
+          f"(kernel {embed_row[0]['kernel_ms_each']:.4f} ms, period "
+          f"{embed_row[0].get('iter_period_ms', float('nan')):.4f} ms)",
+          flush=True)
     print("phase 11 study launches: "
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return errs, launches, times, queued, library
@@ -1466,11 +1552,11 @@ def _pipe(dev, rng, gpu: str, sets: list):
         return sk.embed_and_extract_frames_packed(f, p, t, DELTA, NUM_AC)
 
     times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
-    queued = {k: _queued_ms(_per_set(fn, sets)) for k, fn in calls.items()}
+    queued = {k: _queued_ms(_per_set(fn, sets), k) for k, fn in calls.items()}
     # K13's plain version is K4's: one time for the three ring depths
     plain_ms, plain_q = (_time_ms(_per_set(plain, sets)),
-                         _queued_ms(_per_set(plain, sets)))
-    k4_q = _queued_ms(_per_set(k4, sets))
+                         _queued_ms(_per_set(plain, sets), "K13 plain"))
+    k4_q = _queued_ms(_per_set(k4, sets), "K4 in turn")
     _set_counts(counts)  # timing is not a path's run
     print(f"phase 12 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
           f"rotating over {len(sets)} input sets, {gpu}): "

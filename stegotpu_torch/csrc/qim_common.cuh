@@ -1,19 +1,34 @@
 // The block arithmetic shared by every QIM stripe kernel (qim_stripe.cu,
-// K1-K6) and the study kernels (qim_study.cu, K9-K12): one embed
-// (embed_block) and one decode (slot_bits), as the TPU kernels share
-// _embed_core and _extract_bits_f32 (stegotpu/ops/pallas_kernel.py). Each
-// source that includes this header compiles its own copy of the same
+// K1-K6), the study kernels (qim_study.cu, K9-K12) and K13 (qim_pipe.cu):
+// one embed (embed_block) and one decode (slot_bits), as the TPU kernels
+// share _embed_core and _extract_bits_f32 (stegotpu/ops/pallas_kernel.py).
+// Each source that includes this header compiles its own copy of the same
 // code, so a study kernel and the stripe kernel it varies compute the same
 // bytes by construction: K9 `full` is K5, K10 is K1 and K11 is K4.
 //
 // Every rounding is explicit (fmaf, __fmul_rn, __fsub_rn, __fadd_rn), so
 // nvcc's default FMA contraction cannot round one inlined copy differently
 // from another. No tensor cores (no TF32) and no --use_fast_math.
+//
+// Two spellings of the same arithmetic, chosen at compile time by a tag
+// (ArithCvt, ArithHopper, ArithHopperSmallDelta below) inside the one body
+// of each function, never by a second copy of the block code. They give the
+// same bytes for every input: each Hopper step re-expresses an exact
+// operation on the full-rate pipes (FADD, integer ALU, PRMT) instead of the
+// conversion pipe, which retires 16 results a clock an SM against FADD's
+// 128 (CUDA C++ Programming Guide, throughput table, compute capability
+// 9.0). tests/test_torch_exact_arith.py proves each step on the CPU; the
+// zero-tolerance identities K1 == K3 == K4 (stego) and K2 == K5 hold the two
+// spellings to each other on the card. The matrix operand is a template
+// parameter too: `const float*` into a shared-memory copy, or ConstDct, the
+// constant bank (dct8_f32.cuh).
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "dct8_f32.cuh"
 
 namespace {
 
@@ -33,19 +48,75 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
     *reinterpret_cast<uint2*>(p + static_cast<size_t>(r) * w) = raw[r];
 }
 
+// The arithmetic tags. Each flag picks one spelling of an exact operation.
+// kAddConvert: a u8 pixel becomes f32 as __uint_as_float(0x4B000000 | b)
+//   - 2^23 (PRMT, FADD), and a clamped f32 pixel o in [0, 255] becomes its
+//   truncated u8 as the low byte of __fadd_rz(o, 2^23) = 2^23 + floor(o),
+//   four packed to a word by PRMT; else I2F and F2I.
+// kAddRound: t = __fadd_rn(y / delta, 1.5 * 2^23) holds rint(y / delta)
+//   (round half to even) + 1.5 * 2^23 exactly while |y / delta| <= 2^22, so
+//   t - 1.5 * 2^23 is rint(y / delta) and the low mantissa bit of t is its
+//   floor-mod-2 parity, negatives included; the payload byte is compared
+//   with that bit as an integer. |y| <= 8 * 255 = 2040 for the orthonormal
+//   DCT of u8 pixels, so every delta >= 2^-10 keeps |y / delta| under 2^21.
+//   Else rintf and floorf (FRND), and the payload bit as a float.
+// kRederive: the final add of the embed re-derives each pixel from the
+//   block's bytes instead of keeping x[8][8] live across the embed. On its
+//   own it costs K1 a little; it is what lets K1's register cap at 64 go
+//   without spills, so K1 takes it in its capped build only
+//   (RederiveIfCapped in qim_stripe.cu).
+// kBitsFirst: the embed loads the block's payload bits (every slot up to
+//   num_ac, in bounds whatever rem is) before the first slot; else each
+//   slot loads its bit inside its own branch, one round trip after another.
+struct ArithCvt {  // K3-K6 and K9-K13: the conversion instructions
+  static constexpr bool kAddConvert = false, kAddRound = false, kRederive = false,
+                        kBitsFirst = false;
+};
+struct ArithHopper {  // K1 and K2 at delta >= 2^-10
+  static constexpr bool kAddConvert = true, kAddRound = true, kRederive = true,
+                        kBitsFirst = true;
+};
+struct ArithHopperSmallDelta {  // K1 and K2 at 0 < delta < 2^-10
+  static constexpr bool kAddConvert = true, kAddRound = false, kRederive = true,
+                        kBitsFirst = true;
+};
+
+// The smallest delta at which kAddRound is exact for every u8 block.
+constexpr float kAddRoundMinDelta = 0x1p-10f;
+constexpr float kTwo23 = 8388608.0f;          // 2^23
+constexpr float kRoundShift = 12582912.0f;    // 1.5 * 2^23
+
+// Pixel c of a block row (byte c & 3 of `word`, its half of the row) as f32.
+template <class Arith>
+__device__ __forceinline__ float pixel(uint32_t word, int c) {
+  if constexpr (Arith::kAddConvert)  // selector: the byte, then 0x00, 0x00, 0x4B
+    return __fadd_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, 0x7540u | (c & 3))),
+                     -kTwo23);
+  else
+    return static_cast<float>((word >> (8 * (c & 3))) & 0xFFu);
+}
+
+// pixel() once more, spelled with another PRMT selector that builds the
+// same word (bytes 5 and 6 of 0x4B000000 are zero too), so that the
+// compiler cannot merge it with the first reading and keep all 64 values
+// live across the embed (kRederive).
+__device__ __forceinline__ float pixel_again(uint32_t word, int c) {
+  return __fadd_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, 0x7650u | (c & 3))),
+                   -kTwo23);
+}
+
+template <class Arith = ArithCvt>
 __device__ __forceinline__ void unpack_rows(const uint2 (&raw)[8], float (&x)[8][8]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const uint32_t word = c < 4 ? raw[r].x : raw[r].y;
-      x[r][c] = static_cast<float>((word >> (8 * (c & 3))) & 0xFFu);
-    }
+    for (int c = 0; c < 8; ++c) x[r][c] = pixel<Arith>(c < 4 ? raw[r].x : raw[r].y, c);
 }
 
 // The vertical pass: t[g][c] = sum_r M[g][r] x[r][c] for the slot rows g < RN.
-template <int RN>
-__device__ __forceinline__ void vertical_rows(const float (&x)[8][8], const float* m,
+// Mat: `const float*` (a shared-memory copy of the matrix) or ConstDct.
+template <int RN, class Mat>
+__device__ __forceinline__ void vertical_rows(const float (&x)[8][8], Mat m,
                                               float (&t)[RN][8]) {
 #pragma unroll
   for (int g = 0; g < RN; ++g)
@@ -59,8 +130,8 @@ __device__ __forceinline__ void vertical_rows(const float (&x)[8][8], const floa
 }
 
 // y[g][v] = sum_r sum_c M[g][r] x[r][c] M[v][c] for the slot rows g < RN.
-template <int RN>
-__device__ __forceinline__ void forward_rows(const float (&x)[8][8], const float* m,
+template <int RN, class Mat>
+__device__ __forceinline__ void forward_rows(const float (&x)[8][8], Mat m,
                                              float (&y)[RN][8]) {
   float t[RN][8];
   vertical_rows<RN>(x, m, t);
@@ -82,25 +153,27 @@ __device__ __forceinline__ float parity(float q) {
 }
 
 // The QIM bit of a coefficient: round(y / delta) mod 2, round half to even.
+template <class Arith = ArithCvt>
 __device__ __forceinline__ uint32_t qim_bit(float y, float delta) {
-  return static_cast<uint32_t>(parity(rintf(y / delta)));
+  if constexpr (Arith::kAddRound)
+    return __float_as_uint(__fadd_rn(__fdiv_rn(y, delta), kRoundShift)) & 1u;
+  else
+    return static_cast<uint32_t>(parity(rintf(y / delta)));
 }
 
 // Payload bit sources for embed_block: bit(j) is the block's payload bit j
-// (flat coefficient j + 1), 0 or 1, as a float.
+// (flat coefficient j + 1), 0 or 1 (a wire byte is taken as it is).
 struct WireBits {  // wire order: num_ac u8 bits per block
   const uint8_t* __restrict__ p;
-  __device__ __forceinline__ float operator()(int j) const {
-    return static_cast<float>(p[j]);
-  }
+  __device__ __forceinline__ uint32_t operator()(int j) const { return p[j]; }
 };
 
 template <int RN>
 struct PackedBits {  // K2's packed bytes: bit s of byte g is coefficient 8g+s
   uint32_t byte[RN];
-  __device__ __forceinline__ float operator()(int j) const {
+  __device__ __forceinline__ uint32_t operator()(int j) const {
     const int c = j + 1;
-    return static_cast<float>((byte[c >> 3] >> (c & 7)) & 1u);
+    return (byte[c >> 3] >> (c & 7)) & 1u;
   }
 };
 
@@ -109,14 +182,23 @@ struct PackedBits {  // K2's packed bytes: bit s of byte g is coefficient 8g+s
 // is the number of payload bits left at the block's first slot. The
 // caller passes through blocks with rem <= 0, and every block when
 // delta <= 0, without calling this.
-template <int RN, class Bits>
-__device__ __forceinline__ void embed_block(uint2 (&raw)[8], const float* m,
-                                            const Bits& bit, long long rem,
-                                            int num_ac, float delta) {
+template <int RN, class Arith = ArithCvt, class Mat, class Bits>
+__device__ __forceinline__ void embed_block(uint2 (&raw)[8], Mat m, const Bits& bit,
+                                            long long rem, int num_ac, float delta) {
   float x[8][8];
-  unpack_rows(raw, x);
+  unpack_rows<Arith>(raw, x);
   float y[RN][8];
   forward_rows<RN>(x, m, y);
+
+  uint32_t first[8 * RN];  // kBitsFirst: bit c - 1 of slot c, 0 past num_ac
+  if constexpr (Arith::kBitsFirst) {
+#pragma unroll
+    for (int c = 1; c < 8 * RN; ++c) first[c] = c <= num_ac ? bit(c - 1) : 0u;
+  }
+  const auto bit_of_slot = [&](int c) -> uint32_t {
+    if constexpr (Arith::kBitsFirst) return first[c];
+    else return bit(c - 1);
+  };
 
   // directional-parity QIM + lattice snap, as a sparse coefficient delta
   float dy[RN][8];
@@ -127,9 +209,17 @@ __device__ __forceinline__ void embed_block(uint2 (&raw)[8], const float* m,
       const int c = g * 8 + v;
       float d = 0.0f;
       if (c >= 1 && c <= num_ac && c - 1 < rem) {
-        const float b = bit(c - 1);
-        const float q = rintf(y[g][v] / delta);  // round half to even
-        const float adj = parity(q) != b ? (b == 1.0f ? 1.0f : -1.0f) : 0.0f;
+        float q, adj;
+        if constexpr (Arith::kAddRound) {
+          const float t = __fadd_rn(__fdiv_rn(y[g][v], delta), kRoundShift);
+          q = __fsub_rn(t, kRoundShift);  // round half to even
+          const uint32_t b = bit_of_slot(c);
+          adj = (__float_as_uint(t) & 1u) != b ? (b == 1u ? 1.0f : -1.0f) : 0.0f;
+        } else {
+          const float b = static_cast<float>(bit_of_slot(c));
+          q = rintf(y[g][v] / delta);  // round half to even
+          adj = parity(q) != b ? (b == 1.0f ? 1.0f : -1.0f) : 0.0f;
+        }
         d = __fsub_rn(__fmul_rn(q + adj, delta), y[g][v]);
       }
       dy[g][v] = d;
@@ -148,26 +238,43 @@ __device__ __forceinline__ void embed_block(uint2 (&raw)[8], const float* m,
     }
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    uint32_t lo = 0, hi = 0;
+    uint32_t out[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       float acc = 0.0f;
 #pragma unroll
       for (int g = 0; g < RN; ++g) acc = fmaf(m[g * 8 + r], u[g][c], acc);
-      const float o = fminf(fmaxf(__fadd_rn(x[r][c], acc), 0.0f), 255.0f);
-      const uint32_t byte = static_cast<uint32_t>(static_cast<int>(o));  // truncating
-      if (c < 4) lo |= byte << (8 * c);
-      else hi |= byte << (8 * (c - 4));
+      const float px =
+          Arith::kRederive ? pixel_again(c < 4 ? raw[r].x : raw[r].y, c) : x[r][c];
+      const float o = fminf(fmaxf(__fadd_rn(px, acc), 0.0f), 255.0f);
+      if constexpr (Arith::kAddConvert)  // 2^23 + floor(o): the byte is the low one
+        out[c] = __float_as_uint(__fadd_rz(o, kTwo23));
+      else
+        out[c] = static_cast<uint32_t>(static_cast<int>(o));  // truncating
     }
-    raw[r] = make_uint2(lo, hi);
+    if constexpr (Arith::kAddConvert) {  // byte 0 of each, four to a word
+      raw[r] = make_uint2(
+          __byte_perm(__byte_perm(out[0], out[1], 0x0040u), __byte_perm(out[2], out[3], 0x0040u),
+                      0x5410u),
+          __byte_perm(__byte_perm(out[4], out[5], 0x0040u), __byte_perm(out[6], out[7], 0x0040u),
+                      0x5410u));
+    } else {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (c < 4) lo |= out[c] << (8 * c);
+        else hi |= out[c] << (8 * (c - 4));
+      }
+      raw[r] = make_uint2(lo, hi);
+    }
   }
 }
 
 // The decode (_extract_bits_f32) of a block's pixels as floats: bit v of
 // byte[g] is round(y[g][v]/delta) mod 2. delta <= 0 reads all-zero bits.
-template <int RN>
-__device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], const float* m,
-                                             float delta, uint32_t (&byte)[RN]) {
+template <int RN, class Arith = ArithCvt, class Mat>
+__device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], Mat m, float delta,
+                                             uint32_t (&byte)[RN]) {
   float y[RN][8];
   forward_rows<RN>(x, m, y);
 #pragma unroll
@@ -175,19 +282,19 @@ __device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], const float
     byte[g] = 0;
     if (delta > 0.0f) {
 #pragma unroll
-      for (int v = 0; v < 8; ++v) byte[g] |= qim_bit(y[g][v], delta) << v;
+      for (int v = 0; v < 8; ++v) byte[g] |= qim_bit<Arith>(y[g][v], delta) << v;
     }
   }
 }
 
 // slot_bits_of the block's u8 rows in raw, read exactly as they lie in
 // memory (K3 and K4 pass the quantized stego).
-template <int RN>
-__device__ __forceinline__ void slot_bits(const uint2 (&raw)[8], const float* m,
-                                          float delta, uint32_t (&byte)[RN]) {
+template <int RN, class Arith = ArithCvt, class Mat>
+__device__ __forceinline__ void slot_bits(const uint2 (&raw)[8], Mat m, float delta,
+                                          uint32_t (&byte)[RN]) {
   float x[8][8];
-  unpack_rows(raw, x);
-  slot_bits_of<RN>(x, m, delta, byte);
+  unpack_rows<Arith>(raw, x);
+  slot_bits_of<RN, Arith>(x, m, delta, byte);
 }
 
 // Output row jg*rows_pad + i*RN + g of the compact-rows layout of frame f

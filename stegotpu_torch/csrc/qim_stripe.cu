@@ -46,26 +46,70 @@
 // reference). Build WITHOUT --use_fast_math: fast math turns y/delta into
 // an approximate divide and flushes denormals, which moves round(y/delta)
 // at the rounding boundary.
+//
+// K1 and K2, the main path's kernels, are redesigned for Hopper; K3-K6
+// keep the first design. What held them back was instruction throughput,
+// not bytes: every u8 pixel became a float on the conversion pipe (16
+// results a clock an SM against FADD's 128), every slot rounded with FRND
+// and converted back,
+// every FMA took its matrix operand from shared memory behind a barrier,
+// each slot loaded its payload byte inside its own branch, and K1's
+// wrapper added five small device ops for the bits per frame. Now (the
+// ArithHopper spelling of qim_common.cuh, the same bytes): the matrix
+// comes from the constant bank (dct8_f32.cuh), conversions and rounding
+// are FADDs and PRMTs, the payload bits load before the first slot, K1
+// writes the bits per frame itself (one launch is the whole call), and at
+// num_ac <= 15 a register cap (__launch_bounds__ MINB) lets more of K1's
+// CTAs fit an SM.
 
 #include "qim_common.cuh"
 
 namespace {
 
-template <int RN>
-__global__ void __launch_bounds__(kThreads)
+// The CTAs per SM that K1's build asks ptxas to fit at rn <= 2: 8 gives
+// 64 registers, no spill, and 23% less time than no cap at 1080p B=8 (134
+// registers; 9 spills 16 B, 10 spills 48 B and is slower).
+// studies/k1_cap.py rebuilds this source with -DSTEGOTPU_K1_MINB=<n>
+// for the A/B; 1 is the build without the cap. K2 needs only 40 registers
+// and has no cap: at 16 CTAs (32 registers) it spills 24 B and is slower.
+#ifndef STEGOTPU_K1_MINB
+#define STEGOTPU_K1_MINB 8
+#endif
+
+constexpr int k1_minb(int rn) { return rn <= 2 ? STEGOTPU_K1_MINB : 1; }
+
+// Arith with its pixel re-derive only where a register cap needs it: K1's
+// capped build spills without it, and every build without a cap (rn > 2)
+// is 4-6% faster keeping x[8][8] live.
+template <class Arith, bool Capped>
+struct RederiveIfCapped : Arith {
+  static constexpr bool kRederive = Arith::kRederive && Capped;
+};
+
+// K1 and K2 take the Hopper arithmetic (qim_common.cuh): the matrix from
+// the constant bank, no barrier, and at delta >= 2^-10 no conversion
+// instruction (ArithHopper; the launch takes ArithHopperSmallDelta, with
+// rintf/floorf, below it). MINB is the CTAs per SM that __launch_bounds__
+// asks ptxas to fit, as K13's MINB is: k1_minb(RN).
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 qim_embed_kernel(const uint8_t* __restrict__ frames,
                  const uint8_t* __restrict__ payload,
-                 uint8_t* __restrict__ stego, const float* __restrict__ dct,
-                 int h, int w, int num_ac, long long cap, long long total_bits,
+                 uint8_t* __restrict__ stego, int* __restrict__ bpf, int h, int w,
+                 int num_ac, long long cap, long long total_bits,
                  long long bit_offset, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
+  const ConstDct m{};
+  const int f = blockIdx.z;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    // the frame's bits: clamp(total_bits - bit_offset - f*cap, 0, cap)
+    const long long left = total_bits - bit_offset - f * cap;
+    bpf[f] = static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
+  }
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bw) return;
   const int by = blockIdx.y;
-  const int f = blockIdx.z;
   const long long blk = static_cast<long long>(by) * bw + bx;
   // payload bits left at this block's first slot (global bit indices)
   const long long rem = total_bits - bit_offset - f * cap - blk * num_ac;
@@ -74,20 +118,17 @@ qim_embed_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)  // else never entered, or delta <= 0: passthrough
-    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
-                    num_ac, delta);
+    embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(
+        raw, m, WireBits{payload + f * cap + blk * num_ac}, rem, num_ac, delta);
   store_rows(stego + off, w, raw);
 }
 
-template <int RN>
+template <int RN, class Arith>
 __global__ void __launch_bounds__(kThreads)
 qim_extract_packed_kernel(const uint8_t* __restrict__ frames,
-                          uint8_t* __restrict__ packed,
-                          const float* __restrict__ dct, int h, int w,
+                          uint8_t* __restrict__ packed, int h, int w,
                           int stripe_blocks, int rows_pad, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
-
+  const ConstDct m{};
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bw) return;
@@ -97,7 +138,7 @@ qim_extract_packed_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + block_offset(f, by, bx, h, w), w, raw);
   uint32_t byte[RN];
-  slot_bits<RN>(raw, m, delta, byte);
+  slot_bits<RN, Arith>(raw, m, delta, byte);
   write_packed<RN>(packed, byte, f, by, bx, h, bw, stripe_blocks, rows_pad);
 }
 
@@ -244,38 +285,47 @@ qim_embed_check_kernel(const uint8_t* __restrict__ frames,
 extern "C" {
 
 // frames, stego: (B, H, W) u8; payload: (B, cap) u8, cap = (H/8)(W/8)num_ac;
-// dct: the 8x8 DCT-II matrix, 64 f32 on the device. Each entry point
-// returns a cudaError_t.
+// bpf: (B,) int32, each frame's payload bits, written by the kernel. Each
+// entry point returns a cudaError_t.
 int stegotpu_qim_embed(const void* frames, const void* payload, void* stego,
-                       const void* dct, int device, int b, int h, int w,
-                       int num_ac, long long total_bits, long long bit_offset,
-                       float delta, void* stream) {
+                       void* bpf, int device, int b, int h, int w, int num_ac,
+                       long long total_bits, long long bit_offset, float delta,
+                       void* stream) {
   const cudaError_t err = begin(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_EMBED(RN)                                                  \
-  qim_embed_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(               \
-      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
-      static_cast<uint8_t*>(stego), static_cast<const float*>(dct), h, w,   \
-      num_ac, cap, total_bits, bit_offset, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf), h, w, num_ac, cap,
+        total_bits, bit_offset, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_EMBED(RN)                                          \
+  launch(fast ? qim_embed_kernel<RN, ArithHopper, k1_minb(RN)>     \
+              : qim_embed_kernel<RN, ArithHopperSmallDelta, k1_minb(RN)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_EMBED)
 #undef STEGOTPU_EMBED
   return static_cast<int>(cudaGetLastError());
 }
 
 // frames: (B, H, W) u8; packed: (B, (H/stripe)*rows_pad, W/8) u8.
-int stegotpu_qim_extract_packed(const void* frames, void* packed, const void* dct,
-                                int device, int b, int h, int w, int num_ac,
-                                int stripe, int rows_pad, float delta,
-                                void* stream) {
+int stegotpu_qim_extract_packed(const void* frames, void* packed, int device,
+                                int b, int h, int w, int num_ac, int stripe,
+                                int rows_pad, float delta, void* stream) {
   const cudaError_t err = begin(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_EXTRACT(RN)                                                \
-  qim_extract_packed_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(      \
-      static_cast<const uint8_t*>(frames), static_cast<uint8_t*>(packed),   \
-      static_cast<const float*>(dct), h, w, stripe / 8, rows_pad, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<uint8_t*>(packed), h, w,
+        stripe / 8, rows_pad, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_EXTRACT(RN)                                    \
+  launch(fast ? qim_extract_packed_kernel<RN, ArithHopper>     \
+              : qim_extract_packed_kernel<RN, ArithHopperSmallDelta>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_EXTRACT)
 #undef STEGOTPU_EXTRACT
   return static_cast<int>(cudaGetLastError());

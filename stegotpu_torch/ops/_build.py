@@ -78,12 +78,14 @@ def stale() -> bool:
             or stamp.read_text().strip() != digest())
 
 
-def _compile(srcs: list[Path], out: Path) -> str:
+def _compile(srcs: list[Path], out: Path, defines: tuple[str, ...] = ()) -> str:
     """nvcc every source into an object in parallel, then link them into
-    the shared library `out`. Returns the compilers' output."""
+    the shared library `out`; `defines` adds -D flags (K1's register-cap
+    builds of studies/k1_cap.py). Returns the compilers' output."""
     nvcc = _nvcc()
     objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for src, obj in zip(srcs, objs)]
@@ -93,7 +95,7 @@ def _compile(srcs: list[Path], out: Path) -> str:
     if failed:
         raise RuntimeError("nvcc failed on " + ", ".join(
             f"{name}:\n{log[-4000:]}" for name, log in failed))
-    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(out),
+    link = subprocess.run([nvcc, *flags, "-shared", "-o", str(out),
                            *map(str, objs)], capture_output=True, text=True)
     for obj in objs:
         obj.unlink(missing_ok=True)
@@ -123,50 +125,53 @@ def build() -> str:
         return log
 
 
+_p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# argtypes of every C entry point; each returns an int (a cudaError_t)
+ARGTYPES = {
+    "stegotpu_qim_embed": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i64, _i64, _f,
+                           _p],
+    "stegotpu_qim_extract_packed": [_p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
+    "stegotpu_qim_extract_rows": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f,
+                                  _p],
+    "stegotpu_qim_roundtrip_packed": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                      _i64, _i, _i, _f, _p],
+    "stegotpu_qim_roundtrip_rows": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                    _i64, _i, _i, _f, _p],
+    "stegotpu_qim_embed_check": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i64,
+                                 _f, _p],
+    "stegotpu_kron_embed": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i64, _i64, _f,
+                            _p],
+    "stegotpu_kron_extract": [_p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
+    "stegotpu_qim_ablation": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+                              _p],
+    "stegotpu_qim_embed_packedin": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i64,
+                                    _i, _i, _f, _p],
+    "stegotpu_qim_roundtrip_dual": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                    _i64, _i, _i, _f, _p],
+    "stegotpu_copy": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+    "stegotpu_qim_roundtrip_pipe": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                                    _i, _i64, _i, _i, _f, _p],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points that `lib`
+    exports (a variant build may hold only some of them)."""
+    for name, types in ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = types, _i
+    lib.stegotpu_cuda_error_string.argtypes = [_i]
+    lib.stegotpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The bound kernel library, built first if needed."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(library_path()))
-        p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
-            ctypes.c_float
-        lib.stegotpu_qim_embed.argtypes = [p, p, p, p, i, i, i, i, i, i64,
-                                           i64, f, p]
-        lib.stegotpu_qim_extract_packed.argtypes = [p, p, p, i, i, i, i, i,
-                                                    i, i, f, p]
-        lib.stegotpu_qim_extract_rows.argtypes = [p, p, p, i, i, i, i, i,
-                                                  i, i, f, p]
-        lib.stegotpu_qim_roundtrip_packed.argtypes = [p, p, p, p, p, i, i, i,
-                                                      i, i, i64, i, i, f, p]
-        lib.stegotpu_qim_roundtrip_rows.argtypes = [p, p, p, p, p, i, i, i,
-                                                    i, i, i64, i, i, f, p]
-        lib.stegotpu_qim_embed_check.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                 i, i64, f, p]
-        lib.stegotpu_kron_embed.argtypes = [p, p, p, p, i, i, i, i, i, i64,
-                                            i64, f, p]
-        lib.stegotpu_kron_extract.argtypes = [p, p, p, i, i, i, i, i, f, p]
-        lib.stegotpu_qim_ablation.argtypes = [p, p, p, i, i, i, i, i, i, i,
-                                              i, f, p]
-        lib.stegotpu_qim_embed_packedin.argtypes = [p, p, p, p, i, i, i, i,
-                                                    i, i64, i, i, f, p]
-        lib.stegotpu_qim_roundtrip_dual.argtypes = [p, p, p, p, p, i, i, i,
-                                                    i, i, i64, i, i, f, p]
-        lib.stegotpu_copy.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.stegotpu_qim_roundtrip_pipe.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                    i, i, i, i64, i, i, f, p]
-        for name in ("stegotpu_qim_embed", "stegotpu_qim_extract_packed",
-                     "stegotpu_qim_extract_rows",
-                     "stegotpu_qim_roundtrip_packed",
-                     "stegotpu_qim_roundtrip_rows", "stegotpu_qim_embed_check",
-                     "stegotpu_kron_embed", "stegotpu_kron_extract",
-                     "stegotpu_qim_ablation", "stegotpu_qim_embed_packedin",
-                     "stegotpu_qim_roundtrip_dual", "stegotpu_copy",
-                     "stegotpu_qim_roundtrip_pipe"):
-            getattr(lib, name).restype = i
-        lib.stegotpu_cuda_error_string.argtypes = [i]
-        lib.stegotpu_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(library_path())))
     return _lib
 
 

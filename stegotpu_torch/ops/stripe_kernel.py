@@ -22,10 +22,13 @@ bound by ops/_build.py) with its plain PyTorch version beside it:
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
-no fallback. ``EMBED_LAUNCHES``, ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``,
-``ROUNDTRIP_LAUNCHES``, ``EXTRACT_ROWS_LAUNCHES`` and
-``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel launches (and nothing else),
-so a run can show that it went through them.
+no fallback. K1 and K2 take the Hopper spelling of the shared block
+arithmetic (csrc/qim_common.cuh ArithHopper: the same bytes, no
+conversion instruction at delta >= 2^-10); one K1 call is one kernel,
+which writes the bits per frame beside the stego. ``EMBED_LAUNCHES``,
+``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
+``EXTRACT_ROWS_LAUNCHES`` and ``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel
+launches (and nothing else), so a run can show that it went through them.
 
 The plain versions compute the same sparse-delta form in f32: blockify,
 ``xb @ K^T`` on the slot columns of the Kronecker DCT matrix K, the QIM
@@ -450,23 +453,25 @@ def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
     [bit_offset + i*C, bit_offset + (i+1)*C), and total_bits (global) marks
     the payload end. Returns (stego (B, H, W) uint8, bits per frame (B,)
     int32) on the frames' device — the signature of ops/qim.embed_frames.
+    On the card both come from the one kernel launch: the kernel writes the
+    bits per frame too.
     """
     global EMBED_LAUNCHES
     b, h, w = _check_frames(frames)
-    cap = _check_payload(payload_bits, frames, num_ac)
+    _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
         return embed_frames_plain(frames, payload_bits, total_bits, delta,
                                   num_ac, bit_offset)
     stego = torch.empty_like(frames)
-    if stego.numel():
-        dev = frames.device
-        _launch("stegotpu_qim_embed", frames.data_ptr(),
-                payload_bits.data_ptr(), stego.data_ptr(),
-                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                int(total_bits), int(bit_offset), float(delta), _stream(dev))
-        EMBED_LAUNCHES += 1
-    return stego, _bits_per_frame(b, cap, int(total_bits), int(bit_offset),
-                                  frames.device)
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32, device=frames.device)
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    _launch("stegotpu_qim_embed", frames.data_ptr(), payload_bits.data_ptr(),
+            stego.data_ptr(), bpf.data_ptr(), dev.index, b, h, w, num_ac,
+            int(total_bits), int(bit_offset), float(delta), _stream(dev))
+    EMBED_LAUNCHES += 1
+    return stego, bpf
 
 
 def extract_frames_packed(frames: torch.Tensor, delta: float,
@@ -484,8 +489,8 @@ def extract_frames_packed(frames: torch.Tensor, delta: float,
     if packed.numel():
         dev = frames.device
         _launch("stegotpu_qim_extract_packed", frames.data_ptr(),
-                packed.data_ptr(), _dct_on(dev).data_ptr(), dev.index, b, h,
-                w, num_ac, stripe, rp, float(delta), _stream(dev))
+                packed.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
+                float(delta), _stream(dev))
         EXTRACT_LAUNCHES += 1
     return packed
 

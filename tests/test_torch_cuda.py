@@ -7,6 +7,8 @@ so it runs on a machine with only PyTorch for CUDA and nvcc:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -178,17 +180,30 @@ def test_fused_kernels_match_plain(dev, b, h, w, num_ac, kind):
         & ~near4).any()
 
 
+# K1's and K2's arithmetic switches at delta 2^-10 (ArithHopper above,
+# rintf/floorf below, csrc/qim_common.cuh); at 1e-4 a mid-range
+# block's coefficients give |y / delta| > 2^22, where the add-and-round
+# spelling would be wrong, so a fast path taken there by mistake fails.
+IDENTITY_DELTAS = [20.0, 8.0, 0.0, 1.0, 0.5, 100.0, 2.0**-10, 2.0**-11, 1e-4,
+                   -4.0]
+
+
 @pytest.mark.parametrize("kind", ["mid", "dark"])
-@pytest.mark.parametrize("delta", [20.0, 8.0, 0.0])
-@pytest.mark.parametrize("b,h,w,num_ac", [(2, 48, 240, 10), (2, 64, 64, 63),
-                                          (2, 1080, 1920, 10),
-                                          (2, 768, 1360, 30)])
-def test_zero_tolerance_identities(dev, b, h, w, num_ac, delta, kind):
-    """Kernel against kernel, same device code: K3's and K4's stego are
-    K1's byte for byte, K4's packed bits are K2's of K4's stego byte for
-    byte, K5 is K2 lane for lane, and K3's per-frame count equals a count
-    from K2 on K3's stego."""
+@pytest.mark.parametrize("delta", IDENTITY_DELTAS)
+@pytest.mark.parametrize("b,h,w,num_ac,frac", [
+    (2, 48, 240, 10, 1.0), (2, 64, 64, 63, 1.0), (2, 1080, 1920, 10, 1.0),
+    (2, 768, 1360, 30, 1.0), (3, 40, 136, 1, 1.4), (3, 48, 1048, 63, 1.6)])
+def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
+    """Kernel against kernel: K3's and K4's stego are K1's byte for byte,
+    K4's packed bits are K2's of K4's stego byte for byte, K5 is K2 lane
+    for lane, and K3's per-frame count equals a count from K2 on K3's
+    stego. K1 and K2 spell the arithmetic for Hopper, K3-K5 with conversion
+    instructions:
+    the two spellings give the same bytes at every delta. The last two
+    shapes have W % 16 == 8 and a payload that ends mid-frame."""
     frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
+    if frac != 1.0:  # ends inside frame 1
+        total = int(frac * payload.shape[1])
     s1, bpf1 = sk.embed_frames(frames, payload, total, delta, num_ac)
     s3, bpf3, err3 = sk.embed_and_check_frames(frames, payload, total, delta,
                                                num_ac)
@@ -206,9 +221,66 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, delta, kind):
     count = sk.count_wrong_bits(sk.extract_frames(s3, delta, num_ac),
                                 payload, total)
     assert torch.equal(err3, count)
-    if delta == 0.0:  # every valid slot reads 0 and the stego is the cover
+    if delta <= 0.0:  # every valid slot reads 0 and the stego is the cover
         assert torch.equal(s3, frames)
         assert int(err3.sum()) == int(payload.reshape(-1)[:total].sum())
+
+
+@functools.cache
+def _k1_uncapped():
+    """The kernel library built without K1's register cap
+    (-DSTEGOTPU_K1_MINB=1, studies/k1_cap.py), built once."""
+    from stegotpu_torch.studies import k1_cap
+
+    return k1_cap.build_variants([("minb_1", {"STEGOTPU_K1_MINB": 1})])["minb_1"][0]
+
+
+@pytest.mark.parametrize("delta", [20.0, 0.5, 2.0**-11])
+@pytest.mark.parametrize("num_ac", [10, 15, 1, 30])
+def test_capped_and_uncapped_builds_agree(dev, num_ac, delta):
+    """K1's register-capped build (num_ac <= 15, with the pixel re-derive)
+    and the build without the cap give the same bytes."""
+    from stegotpu_torch.studies import k1_cap
+
+    frames, payload, total = _cover(dev, "mid", 2, 1080, 1920, num_ac)
+    s_c, bpf_c = sk.embed_frames(frames, payload, total, delta, num_ac)
+    with k1_cap.using(_k1_uncapped()):
+        s_u, bpf_u = sk.embed_frames(frames, payload, total, delta, num_ac)
+    assert torch.equal(s_c, s_u) and torch.equal(bpf_c, bpf_u)
+
+
+@pytest.mark.parametrize("b,h,w,num_ac", [(3, 48, 240, 10), (4, 40, 136, 63)])
+def test_embed_writes_bits_per_frame(dev, b, h, w, num_ac):
+    """The bits per frame that K1 writes beside the stego equal
+    _bits_per_frame, with a bit offset, a payload that ends mid-frame,
+    one that runs past the batch, one that ends before the offset, and an
+    offset past 2^32."""
+    frames, payload, _ = _cover(dev, "mid", b, h, w, num_ac)
+    cap = payload.shape[1]
+    for bit_offset, total in ((0, 10**9), (4321, 4321 + int(1.6 * cap)),
+                              (cap + 5, 3 * cap), (100, 50),
+                              (2**33, 2**33 + 2 * cap + 7)):
+        _, bpf = sk.embed_frames(frames, payload, total, 20.0, num_ac,
+                                 bit_offset)
+        assert bpf.dtype == torch.int32 and bpf.device == frames.device
+        assert torch.equal(bpf, sk._bits_per_frame(b, cap, total, bit_offset,
+                                                   dev)), (bit_offset, total)
+
+
+def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
+    """One K1 call and one K2 call are each one device kernel and nothing
+    else: the device timeline of torch.profiler holds no glue."""
+    from stegotpu_torch.studies import device_roofline as dr
+
+    frames, payload, total = _cover(dev, "mid", 2, 48, 240, 10)
+    for name, fn in (("qim_embed_kernel", lambda: sk.embed_frames(
+            frames, payload, total, 20.0, 10)),
+                     ("qim_extract_packed_kernel", lambda: sk.extract_frames_packed(
+                         frames, 20.0, 10))):
+        summ = dr.parse_device_timeline(
+            dr._trace(fn, 4, tmp_path / f"{name}.json"), 4)
+        assert name in summ["kernel_name"], summ
+        assert summ["kernel_count"] == 4 and summ["glue_top"] == [], summ
 
 
 def test_fused_kernels_launch_once_each(dev):

@@ -43,7 +43,7 @@ from stegotpu.ops.exactness import TOL_ABS, TOL_REL
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
                                     dualchain_r5, extract_ablation,
-                                    roofline_r4)
+                                    k1_cap, roofline_r4)
 
 REPO = Path(__file__).resolve().parents[1]
 DELTA = 20.0
@@ -510,10 +510,52 @@ def test_device_timeline_without_device_events():
     assert "error" in device_roofline.parse_device_timeline([], iters=1)
 
 
+@pytest.mark.parametrize("behind,readings", [([False], 1), ([True, False], 2),
+                                             ([True, True, True], 3)])
+def test_queued_ms_retakes_a_reading_the_host_fell_behind_on(
+        monkeypatch, behind, readings):
+    """harness.queued_ms: where the stream had passed the sleep before the
+    host queued the last call (the start event done), the reading counts
+    the device's idle time and is taken again, at most `tries` times."""
+    from stegotpu_torch.studies import harness
+
+    behind, sleeps, calls = list(behind), [], []
+
+    class Event:  # elapsed time: 10 ms a reading so far
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def query(self):
+            return behind.pop(0)
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return 10.0 * len(sleeps)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleeps.append)
+    monkeypatch.setattr(harness, "RETAKES", 0)
+    monkeypatch.setattr(harness, "BEHIND", 0)
+    ms = harness.queued_ms([lambda: calls.append(0), lambda: calls.append(1)],
+                           runs=5, warmup=1)
+    assert len(sleeps) == readings and behind == []
+    assert harness.RETAKES == readings - 1
+    assert harness.BEHIND == (readings == 3)  # behind in all three tries
+    assert len(calls) == 1 + 5 * readings
+    assert ms == pytest.approx(10.0 * readings / 5)
+
+
 # --- the studies' entry points ---------------------------------------------------
 
 @pytest.mark.parametrize("mod", [extract_ablation, ab_packed_payload,
-                                 dualchain_r5, roofline_r4, device_roofline],
+                                 dualchain_r5, roofline_r4, device_roofline,
+                                 k1_cap],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_study_main_exits_nonzero_without_cuda(mod, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,9 +9,9 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
 study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
-kernel's registers and spills (ptxas) and the opcode counts of K1, K2 and
-K4 from cuobjdump -sass of the library (failing if K1's or K2's Hopper
-arithmetic holds a conversion instruction or a shared load), and runs
+kernel's registers and spills (ptxas) and the opcode counts of K1-K4
+from cuobjdump -sass of the library (failing if the Hopper arithmetic of
+any of them holds a conversion instruction or a shared load), and runs
 thirteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
@@ -19,7 +19,7 @@ thirteen phases:
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
 4.   every kernel's time and its plain version's, with CUDA events
-     (K1-K8), and K1's and K2's share of their bound;
+     (K1-K8), and the share of their bound that K1-K4 reach;
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -43,7 +43,8 @@ thirteen phases:
      tolerance and against their plain versions; their times; then the path
      of the four kernels: every study's main at 1080p, and one roofline
      pass at B=128 (a working set far beyond the 50 MB L2); the device
-     timeline must show a K1 call as one kernel and nothing else;
+     timeline must show a K1 or K4 call as one kernel and nothing else,
+     and a K3 call as its kernel behind at most one memset;
 12.  K13 (the fused round trip through a cp.async ring of 2, 3 or 4 tiles)
      against K4 with zero tolerance at 1080p and 768p (B=8), at the
      study's 1080p B=128 and on odd shapes, some at batches where the
@@ -131,11 +132,11 @@ def _ptxas_summary(log: str) -> str:
     and study kernels, the instantiation of the default num_ac=10 (rn=2,
     or the only rn a kernel has) and the largest over rn=1..8, with one
     entry per K9 variant ('ablation_no_qim<2>:...'), per K13 ring depth,
-    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1/K2
+    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1-K4
     arithmetic and register cap ('extract_packed<2>' the Hopper
     arithmetic, 'embed_minb8<2>' K1's with __launch_bounds__(128, 8) at
     rn <= 2, 'embed<3>' without the cap above, 'embed_small_delta_minb8<2>'
-    the build for 0 < delta < 2^-10);
+    the build for delta < 2^-10);
     'kron_embed:64r/0s' and 'copy:16r/0s' for the kernels with one
     instantiation."""
     from stegotpu_torch.studies import sass
@@ -156,7 +157,7 @@ def _ptxas_summary(log: str) -> str:
                 name += "_uncapped"
         elif kind == "ablation":  # <RN, V>
             name = f"ablation_{ABLATIONS[int(args[1])]}"
-        elif len(args) >= 2:  # K1 <RN, Arith, MINB>, K2 <RN, Arith>
+        elif len(args) >= 2:  # K1, K3, K4 <RN, Arith, MINB>, K2 <RN, Arith>
             name = kind + ("_small_delta" if args[1].endswith("SmallDelta")
                            else "")
             if args[2:] and args[2] != "1":
@@ -177,20 +178,22 @@ def _ptxas_summary(log: str) -> str:
     return " ".join(out)
 
 
-# conversion and shared-memory opcodes that K1's and K2's Hopper
-# arithmetic (ArithHopper, delta >= 2^-10) leaves out of their SASS
+# conversion and shared-memory opcodes that the Hopper arithmetic of K1-K4
+# (ArithHopper, delta >= 2^-10) leaves out of their SASS
 NO_SLOW_PIPE = ("I2F", "I2FP", "F2I", "FRND", "LDS")
-# what is left, and why: K2's packed layout divides the block row by the
-# stripe's block rows (group_row in csrc/qim_common.cuh), an integer
+# what is left, and why: K2's and K4's packed layout divides the block row
+# by the stripe's block rows (group_row in csrc/qim_common.cuh), an integer
 # division whose reciprocal takes one I2F and one F2I a thread, outside
 # the block arithmetic
-SLOW_PIPE_LEFT = {"qim_extract_packed_kernel": {"I2F": 1, "F2I": 1}}
+SLOW_PIPE_LEFT = {"qim_extract_packed_kernel": {"I2F": 1, "F2I": 1},
+                  "qim_roundtrip_packed_kernel": {"I2F": 1, "F2I": 1}}
 
 
 def _sass_counts(lib) -> None:
-    """Print the opcode counts of K1, K2 and K4 (rn=2) from cuobjdump -sass
-    of the built library (studies/sass.py), and fail if an ArithHopper
-    build of K1 or K2 holds a conversion instruction or a shared load."""
+    """Print the opcode counts of K1-K4 (rn=2) from cuobjdump -sass of the
+    built library (studies/sass.py), and fail unless each has an
+    ArithHopper build, or if one of those holds a conversion instruction
+    or a shared load beyond SLOW_PIPE_LEFT."""
     from stegotpu_torch.studies import sass
 
     rows = sass.rows(lib)
@@ -200,14 +203,16 @@ def _sass_counts(lib) -> None:
           "bank operand, PRMT byte permutes): "
           + sass.summary(rows), flush=True)
     fast = [r for r in rows if re.search(r", ArithHopper\b", r["kernel"])]
-    check(len(fast) >= 2, f"no ArithHopper build of K1/K2 in the SASS: {rows}")
+    found = {r["kernel"].split("<")[0] for r in fast}
+    check(found == set(sass.DEFAULT_KERNELS),
+          f"no ArithHopper build of {set(sass.DEFAULT_KERNELS) - found}: {rows}")
     bad = {}
     for r in fast:
         left = SLOW_PIPE_LEFT.get(r["kernel"].split("<")[0], {})
         over = {k: r[k] for k in NO_SLOW_PIPE if r[k] > left.get(k, 0)}
         if over:
             bad[r["kernel"]] = over
-    check(not bad, f"K1/K2 ArithHopper builds hold slow-pipe instructions: {bad}")
+    check(not bad, f"K1-K4 ArithHopper builds hold slow-pipe instructions: {bad}")
 
 
 def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
@@ -529,7 +534,8 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4f} ms" for k, v in queued.items()), flush=True)
     from stegotpu_torch.studies import bounds
 
-    for k, kn in (("embed", "K1"), ("extract_packed", "K2")):
+    for k, kn in (("embed", "K1"), ("extract_packed", "K2"),
+                  ("embed_check", "K3"), ("roundtrip_packed", "K4")):
         bound, by = bounds.bound_ms(*bounds.work(k, 8, 1080, 1920, NUM_AC,
                                                  sk.pick_stripe(1080)))
         print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
@@ -1179,9 +1185,12 @@ def _studies(dev, rng, gpu: str, sets: list):
     envelope of an integer, io_only, io_f4, copy and dmaspec equal, and
     K10's and K11's stego within the flip budget. Then each kernel's time
     and its plain version's at 1920x1080, B=8, with Tensor.copy_ beside
-    K12 copy, rotating over phase 4's input `sets`. Then the path: every study's main at 1080p with a small
-    batch and iteration count, and one roofline pass at B=128, with the
-    launch counters set to 0 before and read after.
+    K12 copy, rotating over phase 4's input `sets`. Then the path: every
+    study's main at 1080p with a small batch and iteration count, and one
+    roofline pass at B=128, with the launch counters set to 0 before and
+    read after; device_roofline's timeline must show a K1 or K4 call as
+    one kernel, and a K3 call must be its kernel behind at most one
+    memset.
 
     Returns (max_abs_err, launches on the path, per-call ms, queued ms,
     library ms) by kernel name."""
@@ -1191,7 +1200,7 @@ def _studies(dev, rng, gpu: str, sets: list):
     from stegotpu_torch.ops import stripe_kernel as sk
     from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
                                         dualchain_r5, extract_ablation,
-                                        roofline_r4)
+                                        harness, roofline_r4, stripe_cap)
 
     ea, ab, dc, rr = extract_ablation, ab_packed_payload, dualchain_r5, \
         roofline_r4
@@ -1387,13 +1396,29 @@ def _studies(dev, rng, gpu: str, sets: list):
           f"the studies did not launch every study kernel: {launches}")
     check(all("kernel_ms_each" in r for r in rows[1:]),
           f"device_roofline read no kernel from the timeline: {rows}")
-    embed_row = [r for r in rows[1:] if r["variant"] == "embed"]
-    check(len(embed_row) == 1 and embed_row[0]["glue_top"] == [],
-          f"device_roofline: a K1 call is more than its kernel: {embed_row}")
-    print("phase 11 device_roofline embed B=8: one kernel a call, no glue "
-          f"(kernel {embed_row[0]['kernel_ms_each']:.4f} ms, period "
-          f"{embed_row[0].get('iter_period_ms', float('nan')):.4f} ms)",
-          flush=True)
+    for variant, kn in (("embed", "K1"), ("fused", "K4")):
+        row = [r for r in rows[1:] if r["variant"] == variant]
+        check(len(row) == 1 and row[0]["glue_top"] == [],
+              f"device_roofline: a {kn} call is more than its kernel: {row}")
+        print(f"phase 11 device_roofline {variant} B=8: one {kn} kernel a "
+              f"call, no glue (kernel {row[0]['kernel_ms_each']:.4f} ms, "
+              f"period {row[0].get('iter_period_ms', float('nan')):.4f} ms)",
+              flush=True)
+    # a K3 call: its kernel behind the memset of its counts, nothing else
+    counts = _counts()
+    frames, payload = harness.inputs(dev, 8, 1080, 1920)
+    k3 = stripe_cap.timeline(lambda: sk.embed_and_check_frames(
+        frames, payload, payload.numel(), DELTA, NUM_AC), iters=5)
+    _set_counts(counts)
+    glue = k3["glue_per_iter"]
+    check("qim_embed_check_kernel" in (k3["kernel_name"] or "")
+          and set(glue) <= {"gpu_memset"} and glue.get("gpu_memset", 0) <= 1,
+          f"device timeline: a K3 call is more than its kernel and one "
+          f"memset: {k3}")
+    print("phase 11 device timeline embed_and_check B=8: one K3 kernel a "
+          f"call behind {glue.get('gpu_memset', 0):g} memset (kernel "
+          f"{k3['kernel_ms_each']:.4f} ms, period "
+          f"{k3.get('iter_period_ms') or float('nan'):.4f} ms)", flush=True)
     print("phase 11 study launches: "
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return errs, launches, times, queued, library
@@ -1632,7 +1657,8 @@ def _cli() -> None:
     with --timing (the secret back pixel-identical, SHA3 OK, K1 and K2
     launched), inspect --json (the header embed wrote), steganalyze --json
     (stego-likely, delta 20, num_ac 10), capacity --json (324,000 bits a
-    frame), evaluate, selftest and bench (its JSON line, exactness_ok).
+    frame), evaluate, selftest and bench (its JSON line, exactness_ok, K4
+    launched).
     cryptography, Pillow and cv2 are required here: a missing one fails
     the phase."""
     import numpy as np
@@ -1688,13 +1714,17 @@ def _cli() -> None:
         out, _ = ok("selftest", "--dir", "selftest")
         check("SELFTEST PASSED" in out and "kernel exactness: OK" in out,
               f"selftest: {out}")
+        _set_counts()
         out, _ = ok("bench")
         lines = [ln for ln in out.splitlines() if ln.strip()]
         check(len(lines) == 1, f"bench printed {len(lines)} lines")
         row = json.loads(lines[0])
         check(row.get("exactness_ok") is True and row.get("value", 0) > 0
               and "error" not in row, f"bench: {row}")
-        print(f"phase 13 bench ({row['gpu']}): {json.dumps(row)}", flush=True)
+        check(sk.ROUNDTRIP_LAUNCHES > 0,
+              f"bench launched ROUNDTRIP_LAUNCHES={sk.ROUNDTRIP_LAUNCHES}")
+        print(f"phase 13 bench ({row['gpu']}; ROUNDTRIP_LAUNCHES="
+              f"{sk.ROUNDTRIP_LAUNCHES}): {json.dumps(row)}", flush=True)
 
 if __name__ == "__main__":
     try:

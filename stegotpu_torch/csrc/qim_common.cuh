@@ -18,8 +18,9 @@
 // conversion pipe, which retires 16 results a clock an SM against FADD's
 // 128 (CUDA C++ Programming Guide, throughput table, compute capability
 // 9.0). tests/test_torch_exact_arith.py proves each step on the CPU; the
-// zero-tolerance identities K1 == K3 == K4 (stego) and K2 == K5 hold the two
-// spellings to each other on the card. The matrix operand is a template
+// zero-tolerance identities K6 == K1 and K10 == K1 (stego), K5 == K2, and
+// K11 == K13 == K4 hold the two spellings to each other on the card. The
+// matrix operand is a template
 // parameter too: `const float*` into a shared-memory copy, or ConstDct, the
 // constant bank (dct8_f32.cuh).
 
@@ -63,20 +64,20 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
 // kRederive: the final add of the embed re-derives each pixel from the
 //   block's bytes instead of keeping x[8][8] live across the embed. On its
 //   own it costs K1 a little; it is what lets K1's register cap at 64 go
-//   without spills, so K1 takes it in its capped build only
+//   without spills, so a kernel takes it in a capped build only
 //   (RederiveIfCapped in qim_stripe.cu).
 // kBitsFirst: the embed loads the block's payload bits (every slot up to
 //   num_ac, in bounds whatever rem is) before the first slot; else each
 //   slot loads its bit inside its own branch, one round trip after another.
-struct ArithCvt {  // K3-K6 and K9-K13: the conversion instructions
+struct ArithCvt {  // K5, K6 and K9-K13: the conversion instructions
   static constexpr bool kAddConvert = false, kAddRound = false, kRederive = false,
                         kBitsFirst = false;
 };
-struct ArithHopper {  // K1 and K2 at delta >= 2^-10
+struct ArithHopper {  // K1-K4 at delta >= 2^-10
   static constexpr bool kAddConvert = true, kAddRound = true, kRederive = true,
                         kBitsFirst = true;
 };
-struct ArithHopperSmallDelta {  // K1 and K2 at 0 < delta < 2^-10
+struct ArithHopperSmallDelta {  // K1-K4 at delta < 2^-10
   static constexpr bool kAddConvert = true, kAddRound = false, kRederive = true,
                         kBitsFirst = true;
 };
@@ -175,6 +176,19 @@ struct PackedBits {  // K2's packed bytes: bit s of byte g is coefficient 8g+s
     const int c = j + 1;
     return (byte[c >> 3] >> (c & 7)) & 1u;
   }
+};
+
+// K3's bits: the block's wire bytes loaded once into registers (bit j is
+// slot j + 1; 0 past num_ac, every load in bounds), so that the count of
+// wrong bits after the re-extract reads the registers the embed read.
+template <int RN>
+struct HeldBits {
+  uint32_t v[8 * RN - 1];
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ p, int num_ac) {
+#pragma unroll
+    for (int j = 0; j < 8 * RN - 1; ++j) v[j] = j < num_ac ? p[j] : 0u;
+  }
+  __device__ __forceinline__ uint32_t operator()(int j) const { return v[j]; }
 };
 
 // The QIM embed of one block (_embed_core): the cover's 8 rows of u8 in
@@ -288,7 +302,7 @@ __device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], Mat m, floa
 }
 
 // slot_bits_of the block's u8 rows in raw, read exactly as they lie in
-// memory (K3 and K4 pass the quantized stego).
+// memory (K3, K4 and K6 pass the quantized stego).
 template <int RN, class Arith = ArithCvt, class Mat>
 __device__ __forceinline__ void slot_bits(const uint2 (&raw)[8], Mat m, float delta,
                                           uint32_t (&byte)[RN]) {

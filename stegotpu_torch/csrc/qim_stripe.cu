@@ -47,36 +47,46 @@
 // an approximate divide and flushes denormals, which moves round(y/delta)
 // at the rounding boundary.
 //
-// K1 and K2, the main path's kernels, are redesigned for Hopper; K3-K6
-// keep the first design. What held them back was instruction throughput,
-// not bytes: every u8 pixel became a float on the conversion pipe (16
-// results a clock an SM against FADD's 128), every slot rounded with FRND
-// and converted back,
-// every FMA took its matrix operand from shared memory behind a barrier,
-// each slot loaded its payload byte inside its own branch, and K1's
-// wrapper added five small device ops for the bits per frame. Now (the
-// ArithHopper spelling of qim_common.cuh, the same bytes): the matrix
-// comes from the constant bank (dct8_f32.cuh), conversions and rounding
-// are FADDs and PRMTs, the payload bits load before the first slot, K1
-// writes the bits per frame itself (one launch is the whole call), and at
-// num_ac <= 15 a register cap (__launch_bounds__ MINB) lets more of K1's
-// CTAs fit an SM.
+// K1 and K2, the main path's kernels, and K3 and K4, the verified
+// embed's and the bench's, are redesigned for Hopper; K5 and K6 keep the
+// first design. What held them back was instruction throughput, not
+// bytes: every u8 pixel became a float on the conversion pipe (16 results
+// a clock an SM against FADD's 128), every slot rounded with FRND and
+// converted back, every FMA took its matrix operand from shared memory
+// behind a barrier, each slot loaded its payload byte inside its own
+// branch, and the wrappers added five small device ops for the bits per
+// frame. Now (the ArithHopper spelling of qim_common.cuh, the same bytes):
+// the matrix comes from the constant bank (dct8_f32.cuh), conversions and
+// rounding are FADDs and PRMTs, the payload bits load before the first
+// slot (K3 holds them in registers for its count too), each kernel writes
+// the bits per frame itself (one launch is the whole call; K3's counts
+// are zeroed by one memset before it), and at num_ac <= 15 a register cap
+// (__launch_bounds__ MINB) lets more of K1's, K3's and K4's CTAs fit an SM.
 
 #include "qim_common.cuh"
 
 namespace {
 
-// The CTAs per SM that K1's build asks ptxas to fit at rn <= 2: 8 gives
-// 64 registers, no spill, and 23% less time than no cap at 1080p B=8 (134
-// registers; 9 spills 16 B, 10 spills 48 B and is slower).
-// studies/k1_cap.py rebuilds this source with -DSTEGOTPU_K1_MINB=<n>
-// for the A/B; 1 is the build without the cap. K2 needs only 40 registers
-// and has no cap: at 16 CTAs (32 registers) it spills 24 B and is slower.
+// The CTAs per SM that K1's, K3's and K4's builds ask ptxas to fit at
+// rn <= 2 (1: no cap). 8 gives each 64 registers and no spill. At 1080p
+// B=8 it takes 23% less time than no cap in K1 (134 registers; 9 spills
+// 16 B, 10 spills 48 B and is slower), 11% less in K3 (152) and 13% less
+// in K4 (136). studies/stripe_cap.py rebuilds this source with
+// -DSTEGOTPU_K1_MINB=<n> (K3_MINB, K4_MINB) for the A/B. K2 needs only 40
+// registers and has no cap: at 16 CTAs (32 registers) it spills 24 B and
+// is slower.
 #ifndef STEGOTPU_K1_MINB
 #define STEGOTPU_K1_MINB 8
 #endif
+#ifndef STEGOTPU_K3_MINB
+#define STEGOTPU_K3_MINB 8
+#endif
+#ifndef STEGOTPU_K4_MINB
+#define STEGOTPU_K4_MINB 8
+#endif
 
-constexpr int k1_minb(int rn) { return rn <= 2 ? STEGOTPU_K1_MINB : 1; }
+// A kernel's CTAs per SM: its cap at rn <= 2, none above.
+constexpr int capped_minb(int rn, int minb) { return rn <= 2 ? minb : 1; }
 
 // Arith with its pixel re-derive only where a register cap needs it: K1's
 // capped build spills without it, and every build without a cap (rn > 2)
@@ -86,11 +96,20 @@ struct RederiveIfCapped : Arith {
   static constexpr bool kRederive = Arith::kRederive && Capped;
 };
 
-// K1 and K2 take the Hopper arithmetic (qim_common.cuh): the matrix from
-// the constant bank, no barrier, and at delta >= 2^-10 no conversion
+// Thread 0 of the frame's first CTA writes the frame's payload bits,
+// clamp(left, 0, cap), where left is the number of bits left at the
+// frame's first slot: the wrappers then need no device op of their own.
+__device__ __forceinline__ void frame_bits(int* __restrict__ bpf, int f,
+                                           long long left, long long cap) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    bpf[f] = static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
+}
+
+// K1-K4 take the Hopper arithmetic (qim_common.cuh): the matrix from the
+// constant bank, no barrier, and at delta >= 2^-10 no conversion
 // instruction (ArithHopper; the launch takes ArithHopperSmallDelta, with
 // rintf/floorf, below it). MINB is the CTAs per SM that __launch_bounds__
-// asks ptxas to fit, as K13's MINB is: k1_minb(RN).
+// asks ptxas to fit, as K13's MINB is: capped_minb(RN, ...).
 template <int RN, class Arith, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
 qim_embed_kernel(const uint8_t* __restrict__ frames,
@@ -100,11 +119,7 @@ qim_embed_kernel(const uint8_t* __restrict__ frames,
                  long long bit_offset, float delta) {
   const ConstDct m{};
   const int f = blockIdx.z;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
-    // the frame's bits: clamp(total_bits - bit_offset - f*cap, 0, cap)
-    const long long left = total_bits - bit_offset - f * cap;
-    bpf[f] = static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
-  }
+  frame_bits(bpf, f, total_bits - bit_offset - f * cap, cap);
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -164,36 +179,35 @@ qim_extract_rows_kernel(const uint8_t* __restrict__ frames,
   write_rows<RN>(rows, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
 }
 
-template <int RN>
-__global__ void __launch_bounds__(kThreads)
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 qim_roundtrip_packed_kernel(const uint8_t* __restrict__ frames,
                             const uint8_t* __restrict__ payload,
-                            uint8_t* __restrict__ stego,
-                            uint8_t* __restrict__ packed,
-                            const float* __restrict__ dct, int h, int w,
+                            uint8_t* __restrict__ stego, int* __restrict__ bpf,
+                            uint8_t* __restrict__ packed, int h, int w,
                             int num_ac, long long cap, long long total_bits,
                             int stripe_blocks, int rows_pad, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
+  const ConstDct m{};
+  const int f = blockIdx.z;
+  frame_bits(bpf, f, total_bits - f * cap, cap);  // no bit offset
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bw) return;
   const int by = blockIdx.y;
-  const int f = blockIdx.z;
   const long long blk = static_cast<long long>(by) * bw + bx;
-  const long long rem = total_bits - f * cap - blk * num_ac;  // no bit offset
+  const long long rem = total_bits - f * cap - blk * num_ac;
   const size_t off = block_offset(f, by, bx, h, w);
 
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)
-    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
-                    num_ac, delta);
+    embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(
+        raw, m, WireBits{payload + f * cap + blk * num_ac}, rem, num_ac, delta);
   store_rows(stego + off, w, raw);
   // re-extract from the quantized stego, still in registers
   uint32_t byte[RN];
-  slot_bits<RN>(raw, m, delta, byte);
+  slot_bits<RN, Arith>(raw, m, delta, byte);
   write_packed<RN>(packed, byte, f, by, bx, h, bw, stripe_blocks, rows_pad);
 }
 
@@ -230,49 +244,53 @@ qim_roundtrip_rows_kernel(const uint8_t* __restrict__ frames,
   write_rows<RN>(rows, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
 }
 
-// errors: (B,) int32, zeroed by the caller on the launch stream. Blocks of
-// the GPU grid run in no order, so there is no sequential axis to carry a
-// sum along (the TPU kernel's stripe axis): each warp sums its threads'
-// counts and adds them to its frame's slot with one atomic. Integer sums
-// are exact, so the count does not depend on the order of the atomics.
-template <int RN>
-__global__ void __launch_bounds__(kThreads)
+// errors: (B,) int32, zeroed by the entry point on the launch stream.
+// Blocks of the GPU grid run in no order, so there is no sequential axis
+// to carry a sum along (the TPU kernel's stripe axis): each warp sums its
+// threads' counts and adds them to its frame's slot with one atomic.
+// Integer sums are exact, so the count does not depend on the order of
+// the atomics. The block's payload bytes are loaded once, into registers
+// (HeldBits), for the embed and the count alike.
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 qim_embed_check_kernel(const uint8_t* __restrict__ frames,
                        const uint8_t* __restrict__ payload,
-                       uint8_t* __restrict__ stego, int* __restrict__ errors,
-                       const float* __restrict__ dct, int h, int w, int num_ac,
+                       uint8_t* __restrict__ stego, int* __restrict__ bpf,
+                       int* __restrict__ errors, int h, int w, int num_ac,
                        long long cap, long long total_bits, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
+  const ConstDct m{};
+  const int f = blockIdx.z;
+  frame_bits(bpf, f, total_bits - f * cap, cap);  // no bit offset
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   const int by = blockIdx.y;
-  const int f = blockIdx.z;
   int count = 0;
   if (bx < bw) {  // no early return: the whole warp takes part in the sum
     const long long blk = static_cast<long long>(by) * bw + bx;
-    const long long rem = total_bits - f * cap - blk * num_ac;  // no bit offset
+    const long long rem = total_bits - f * cap - blk * num_ac;
     const size_t off = block_offset(f, by, bx, h, w);
-    const uint8_t* bits = payload + f * cap + blk * num_ac;
 
     uint2 raw[8];
     load_rows(frames + off, w, raw);
+    HeldBits<RN> bits;  // read only where rem > 0
+    if (rem > 0) bits.load(payload + f * cap + blk * num_ac, num_ac);
     if (rem > 0 && delta > 0.0f)
-      embed_block<RN>(raw, m, WireBits{bits}, rem, num_ac, delta);
+      embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(raw, m, bits, rem,
+                                                           num_ac, delta);
     store_rows(stego + off, w, raw);
     if (rem > 0) {  // blocks never entered hold no valid slot
       // re-extract from the quantized stego, still in registers; with
       // delta <= 0 every valid slot reads 0
       uint32_t byte[RN];
-      slot_bits<RN>(raw, m, delta, byte);
+      slot_bits<RN, Arith>(raw, m, delta, byte);
 #pragma unroll
       for (int g = 0; g < RN; ++g)
 #pragma unroll
         for (int v = 0; v < 8; ++v) {
           const int c = g * 8 + v;
           if (c >= 1 && c <= num_ac && c - 1 < rem)
-            count += ((byte[g] >> v) & 1u) != bits[c - 1];
+            count += ((byte[g] >> v) & 1u) != bits(c - 1);
         }
     }
   }
@@ -302,9 +320,11 @@ int stegotpu_qim_embed(const void* frames, const void* payload, void* stego,
         total_bits, bit_offset, delta);
   };
   const bool fast = delta >= kAddRoundMinDelta;
-#define STEGOTPU_EMBED(RN)                                          \
-  launch(fast ? qim_embed_kernel<RN, ArithHopper, k1_minb(RN)>     \
-              : qim_embed_kernel<RN, ArithHopperSmallDelta, k1_minb(RN)>)
+#define STEGOTPU_EMBED(RN)                                               \
+  launch(fast ? qim_embed_kernel<RN, ArithHopper,                         \
+                                 capped_minb(RN, STEGOTPU_K1_MINB)>       \
+              : qim_embed_kernel<RN, ArithHopperSmallDelta,               \
+                                 capped_minb(RN, STEGOTPU_K1_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_EMBED)
 #undef STEGOTPU_EMBED
   return static_cast<int>(cudaGetLastError());
@@ -348,10 +368,11 @@ int stegotpu_qim_extract_rows(const void* frames, void* rows, const void* dct,
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames, stego: (B, H, W) u8; payload: (B, cap) u8; packed as for
-// stegotpu_qim_extract_packed. Global bit 0 is the payload's first bit.
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8; bpf as for
+// stegotpu_qim_embed; packed as for stegotpu_qim_extract_packed. Global
+// bit 0 is the payload's first bit.
 int stegotpu_qim_roundtrip_packed(const void* frames, const void* payload,
-                                  void* stego, void* packed, const void* dct,
+                                  void* stego, void* bpf, void* packed,
                                   int device, int b, int h, int w, int num_ac,
                                   long long total_bits, int stripe,
                                   int rows_pad, float delta, void* stream) {
@@ -359,12 +380,19 @@ int stegotpu_qim_roundtrip_packed(const void* frames, const void* payload,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_ROUNDTRIP(RN)                                              \
-  qim_roundtrip_packed_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(    \
-      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
-      static_cast<uint8_t*>(stego), static_cast<uint8_t*>(packed),          \
-      static_cast<const float*>(dct), h, w, num_ac, cap, total_bits,        \
-      stripe / 8, rows_pad, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf),
+        static_cast<uint8_t*>(packed), h, w, num_ac, cap, total_bits,
+        stripe / 8, rows_pad, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_ROUNDTRIP(RN)                                           \
+  launch(fast ? qim_roundtrip_packed_kernel<RN, ArithHopper,            \
+                                            capped_minb(RN, STEGOTPU_K4_MINB)> \
+              : qim_roundtrip_packed_kernel<RN, ArithHopperSmallDelta,  \
+                                            capped_minb(RN, STEGOTPU_K4_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_ROUNDTRIP)
 #undef STEGOTPU_ROUNDTRIP
   return static_cast<int>(cudaGetLastError());
@@ -392,21 +420,31 @@ int stegotpu_qim_roundtrip_rows(const void* frames, const void* payload,
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames, stego: (B, H, W) u8; payload: (B, cap) u8; errors: (B,) int32,
-// zeroed by the caller on `stream`. Global bit 0 is the payload's first bit.
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8; bpf as for
+// stegotpu_qim_embed; errors: (B,) int32, zeroed here on `stream` before
+// the launch. Global bit 0 is the payload's first bit.
 int stegotpu_qim_embed_check(const void* frames, const void* payload,
-                             void* stego, void* errors, const void* dct,
-                             int device, int b, int h, int w, int num_ac,
+                             void* stego, void* bpf, void* errors, int device,
+                             int b, int h, int w, int num_ac,
                              long long total_bits, float delta, void* stream) {
-  const cudaError_t err = begin(device);
+  cudaError_t err = begin(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_CHECK(RN)                                                  \
-  qim_embed_check_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(         \
-      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
-      static_cast<uint8_t*>(stego), static_cast<int*>(errors),              \
-      static_cast<const float*>(dct), h, w, num_ac, cap, total_bits, delta)
+  err = cudaMemsetAsync(errors, 0, sizeof(int) * b, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf),
+        static_cast<int*>(errors), h, w, num_ac, cap, total_bits, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_CHECK(RN)                                               \
+  launch(fast ? qim_embed_check_kernel<RN, ArithHopper,                 \
+                                       capped_minb(RN, STEGOTPU_K3_MINB)> \
+              : qim_embed_check_kernel<RN, ArithHopperSmallDelta,       \
+                                       capped_minb(RN, STEGOTPU_K3_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_CHECK)
 #undef STEGOTPU_CHECK
   return static_cast<int>(cudaGetLastError());

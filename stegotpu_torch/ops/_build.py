@@ -80,8 +80,8 @@ def stale() -> bool:
 
 def _compile(srcs: list[Path], out: Path, defines: tuple[str, ...] = ()) -> str:
     """nvcc every source into an object in parallel, then link them into
-    the shared library `out`; `defines` adds -D flags (K1's register-cap
-    builds of studies/k1_cap.py). Returns the compilers' output."""
+    the shared library `out`; `defines` adds -D flags (the register-cap
+    builds of studies/stripe_cap.py). Returns the compilers' output."""
     nvcc = _nvcc()
     objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in srcs]
     flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]

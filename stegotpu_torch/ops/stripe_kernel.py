@@ -22,10 +22,11 @@ bound by ops/_build.py) with its plain PyTorch version beside it:
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
-no fallback. K1 and K2 take the Hopper spelling of the shared block
+no fallback. K1-K4 take the Hopper spelling of the shared block
 arithmetic (csrc/qim_common.cuh ArithHopper: the same bytes, no
-conversion instruction at delta >= 2^-10); one K1 call is one kernel,
-which writes the bits per frame beside the stego. ``EMBED_LAUNCHES``,
+conversion instruction at delta >= 2^-10); one K1 or K4 call is one
+kernel, which writes the bits per frame beside its outputs, and one K3
+call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
 ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
 ``EXTRACT_ROWS_LAUNCHES`` and ``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel
 launches (and nothing else), so a run can show that it went through them.
@@ -539,22 +540,24 @@ def embed_and_extract_frames_packed(
     roofline study's s216/s360 variants); None picks it from H."""
     global ROUNDTRIP_LAUNCHES
     b, h, w = _check_frames(frames)
-    cap = _check_payload(payload_bits, frames, num_ac)
+    _check_payload(payload_bits, frames, num_ac)
     shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK, stripe)
     if frames.device.type == "cpu":
         return embed_and_extract_frames_packed_plain(
             frames, payload_bits, total_bits, delta, num_ac, stripe)
     stego = torch.empty_like(frames)
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
-    if stego.numel():
-        dev = frames.device
-        _launch("stegotpu_qim_roundtrip_packed", frames.data_ptr(),
-                payload_bits.data_ptr(), stego.data_ptr(), packed.data_ptr(),
-                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                int(total_bits), stripe, rp, float(delta), _stream(dev))
-        ROUNDTRIP_LAUNCHES += 1
-    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
-                                  frames.device), packed
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32,
+                                  device=frames.device), packed
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    _launch("stegotpu_qim_roundtrip_packed", frames.data_ptr(),
+            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+            packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+            stripe, rp, float(delta), _stream(dev))
+    ROUNDTRIP_LAUNCHES += 1
+    return stego, bpf, packed
 
 
 def embed_and_extract_frames(
@@ -582,22 +585,24 @@ def embed_and_check_frames(
     bit 0 is the payload's first bit (no bit offset)."""
     global CHECK_LAUNCHES
     b, h, w = _check_frames(frames)
-    cap = _check_payload(payload_bits, frames, num_ac)
+    _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
         return embed_and_check_frames_plain(frames, payload_bits, total_bits,
                                             delta, num_ac)
     stego = torch.empty_like(frames)
-    # zeroed on the current stream, the stream the kernel launches on
-    errors = torch.zeros(b, dtype=torch.int32, device=frames.device)
-    if stego.numel():
-        dev = frames.device
-        _launch("stegotpu_qim_embed_check", frames.data_ptr(),
-                payload_bits.data_ptr(), stego.data_ptr(), errors.data_ptr(),
-                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                int(total_bits), float(delta), _stream(dev))
-        CHECK_LAUNCHES += 1
-    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
-                                  frames.device), errors
+    if not stego.numel():  # no block, no bit, no error
+        zeros = torch.zeros(b, dtype=torch.int32, device=frames.device)
+        return stego, zeros, zeros.clone()
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    # zeroed by the entry point on the stream the kernel launches on
+    errors = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    _launch("stegotpu_qim_embed_check", frames.data_ptr(),
+            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+            errors.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+            float(delta), _stream(dev))
+    CHECK_LAUNCHES += 1
+    return stego, bpf, errors
 
 
 def embed_and_extract_frames_rows(

@@ -73,12 +73,16 @@ def parse_device_timeline(events: list[dict], iters: int,
                 (b - a) / 1e3 for a, b in zip(starts, starts[1:]))
     chosen = {id(k) for k in kerns}
     glue: collections.Counter = collections.Counter()
+    cats: collections.Counter = collections.Counter()
     for e in dev:
         if id(e) not in chosen and float(e["dur"]) > 0:
             glue[e["name"]] += float(e["dur"])
+            cats[e["cat"]] += 1
     out["glue_top"] = [{"name": n[:60], "total_ms": v / 1e3,
                         "per_iter_ms": v / 1e3 / max(iters, 1)}
                        for n, v in glue.most_common(6)]
+    # the glue's device ops a call, by trace category (kernel, memset, memcpy)
+    out["glue_per_iter"] = {c: k / max(iters, 1) for c, k in sorted(cats.items())}
     return out
 
 

@@ -180,7 +180,7 @@ def test_fused_kernels_match_plain(dev, b, h, w, num_ac, kind):
         & ~near4).any()
 
 
-# K1's and K2's arithmetic switches at delta 2^-10 (ArithHopper above,
+# K1-K4's arithmetic switches at delta 2^-10 (ArithHopper above,
 # rintf/floorf below, csrc/qim_common.cuh); at 1e-4 a mid-range
 # block's coefficients give |y / delta| > 2^22, where the add-and-round
 # spelling would be wrong, so a fast path taken there by mistake fails.
@@ -194,24 +194,34 @@ IDENTITY_DELTAS = [20.0, 8.0, 0.0, 1.0, 0.5, 100.0, 2.0**-10, 2.0**-11, 1e-4,
     (2, 48, 240, 10, 1.0), (2, 64, 64, 63, 1.0), (2, 1080, 1920, 10, 1.0),
     (2, 768, 1360, 30, 1.0), (3, 40, 136, 1, 1.4), (3, 48, 1048, 63, 1.6)])
 def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
-    """Kernel against kernel: K3's and K4's stego are K1's byte for byte,
-    K4's packed bits are K2's of K4's stego byte for byte, K5 is K2 lane
-    for lane, and K3's per-frame count equals a count from K2 on K3's
-    stego. K1 and K2 spell the arithmetic for Hopper, K3-K5 with conversion
-    instructions:
-    the two spellings give the same bytes at every delta. The last two
-    shapes have W % 16 == 8 and a payload that ends mid-frame."""
+    """Kernel against kernel: K3's, K4's and K6's stego are K1's byte for
+    byte, K4's packed bits are K2's of K4's stego byte for byte, K5 is K2
+    lane for lane, K3's per-frame count equals a count from K2 on K3's
+    stego, and K13 (a ring of 2) and, at an even B, K11 are K4 (stego,
+    bits per frame, packed bits). K1-K4 spell the arithmetic for Hopper,
+    K5, K6, K11 and K13 with conversion instructions: the two spellings
+    give the same bytes at every delta. The last two shapes have W % 16 ==
+    8 and a payload that ends mid-frame."""
+    from stegotpu_torch.studies import dualchain_r5, emitpipe_r4
+
     frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
     if frac != 1.0:  # ends inside frame 1
         total = int(frac * payload.shape[1])
-    s1, bpf1 = sk.embed_frames(frames, payload, total, delta, num_ac)
-    s3, bpf3, err3 = sk.embed_and_check_frames(frames, payload, total, delta,
-                                               num_ac)
-    s4, bpf4, p4 = sk.embed_and_extract_frames_packed(frames, payload, total,
-                                                      delta, num_ac)
-    assert torch.equal(s3, s1) and torch.equal(s4, s1)
+    args = (frames, payload, total, delta, num_ac)
+    s1, bpf1 = sk.embed_frames(*args)
+    s3, bpf3, err3 = sk.embed_and_check_frames(*args)
+    k4 = sk.embed_and_extract_frames_packed(*args)
+    s4, bpf4, p4 = k4
+    s6, bpf6, _ = sk.embed_and_extract_frames_rows(*args)
+    assert torch.equal(s3, s1) and torch.equal(s4, s1) and torch.equal(s6, s1)
     assert torch.equal(bpf3, bpf1) and torch.equal(bpf4, bpf1)
+    assert torch.equal(bpf6, bpf1)
     assert torch.equal(p4, sk.extract_frames_packed(s4, delta, num_ac))
+    others = [emitpipe_r4.roundtrip_pipelined_packed(*args, bufs=2)]
+    if b % 2 == 0:  # dual_roundtrip_packed takes two frames a thread
+        others.append(dualchain_r5.dual_roundtrip_packed(*args))
+    for got in others:
+        assert all(torch.equal(a, c) for a, c in zip(got, k4))
     for x in (frames, s1):
         rows = sk.extract_frames_rows(x, delta, num_ac)
         packed = sk.extract_frames_packed(x, delta, num_ac)
@@ -227,26 +237,31 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
 
 
 @functools.cache
-def _k1_uncapped():
-    """The kernel library built without K1's register cap
-    (-DSTEGOTPU_K1_MINB=1, studies/k1_cap.py), built once."""
-    from stegotpu_torch.studies import k1_cap
+def _uncapped():
+    """The kernel library built without the register caps of K1, K3 and
+    K4 (-DSTEGOTPU_K1_MINB=1 and so on, studies/stripe_cap.py), built
+    once."""
+    from stegotpu_torch.studies import stripe_cap
 
-    return k1_cap.build_variants([("minb_1", {"STEGOTPU_K1_MINB": 1})])["minb_1"][0]
+    how = {"defines": {stripe_cap.KERNELS[k][3]: 1 for k in stripe_cap.KERNELS}}
+    return stripe_cap.build_variants([("uncapped", how)])["uncapped"][0]
 
 
 @pytest.mark.parametrize("delta", [20.0, 0.5, 2.0**-11])
 @pytest.mark.parametrize("num_ac", [10, 15, 1, 30])
 def test_capped_and_uncapped_builds_agree(dev, num_ac, delta):
-    """K1's register-capped build (num_ac <= 15, with the pixel re-derive)
-    and the build without the cap give the same bytes."""
-    from stegotpu_torch.studies import k1_cap
+    """The register-capped builds of K1, K3 and K4 (num_ac <= 15, with the
+    pixel re-derive) and the builds without a cap give the same bytes."""
+    from stegotpu_torch.studies import stripe_cap
 
     frames, payload, total = _cover(dev, "mid", 2, 1080, 1920, num_ac)
-    s_c, bpf_c = sk.embed_frames(frames, payload, total, delta, num_ac)
-    with k1_cap.using(_k1_uncapped()):
-        s_u, bpf_u = sk.embed_frames(frames, payload, total, delta, num_ac)
-    assert torch.equal(s_c, s_u) and torch.equal(bpf_c, bpf_u)
+    args = (frames, payload, total, delta, num_ac)
+    fns = [fn for _, _, fn, _ in stripe_cap.KERNELS.values()]
+    capped = [fn(*args) for fn in fns]
+    with stripe_cap.using(_uncapped()):
+        uncapped = [fn(*args) for fn in fns]
+    for c, u in zip(capped, uncapped):
+        assert all(torch.equal(a, b) for a, b in zip(c, u))
 
 
 @pytest.mark.parametrize("b,h,w,num_ac", [(3, 48, 240, 10), (4, 40, 136, 63)])
@@ -267,20 +282,44 @@ def test_embed_writes_bits_per_frame(dev, b, h, w, num_ac):
                                                    dev)), (bit_offset, total)
 
 
+@pytest.mark.parametrize("b,h,w,num_ac", [(3, 48, 240, 10), (4, 40, 136, 63)])
+def test_fused_kernels_write_bits_per_frame(dev, b, h, w, num_ac):
+    """The bits per frame that K3 and K4 write beside their outputs equal
+    _bits_per_frame (no bit offset), with a payload that ends mid-frame,
+    one that ends at a frame's end, one that runs past the batch and an
+    empty one."""
+    frames, payload, _ = _cover(dev, "mid", b, h, w, num_ac)
+    cap = payload.shape[1]
+    for total in (int(1.6 * cap), 2 * cap, 10**9, 0):
+        want = sk._bits_per_frame(b, cap, total, 0, dev)
+        for fn in (sk.embed_and_check_frames,
+                   sk.embed_and_extract_frames_packed):
+            _, bpf, _ = fn(frames, payload, total, 20.0, num_ac)
+            assert bpf.dtype == torch.int32 and bpf.device == frames.device
+            assert torch.equal(bpf, want), (fn.__name__, total)
+
+
 def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
-    """One K1 call and one K2 call are each one device kernel and nothing
-    else: the device timeline of torch.profiler holds no glue."""
+    """One K1, K2 or K4 call is one device kernel and nothing else: the
+    device timeline of torch.profiler holds no glue. One K3 call is its
+    kernel behind one memset of its counts."""
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 240, 10)
-    for name, fn in (("qim_embed_kernel", lambda: sk.embed_frames(
-            frames, payload, total, 20.0, 10)),
-                     ("qim_extract_packed_kernel", lambda: sk.extract_frames_packed(
-                         frames, 20.0, 10))):
+    args = (frames, payload, total, 20.0, 10)
+    for name, fn, glue in (
+            ("qim_embed_kernel", lambda: sk.embed_frames(*args), {}),
+            ("qim_extract_packed_kernel",
+             lambda: sk.extract_frames_packed(frames, 20.0, 10), {}),
+            ("qim_roundtrip_packed_kernel",
+             lambda: sk.embed_and_extract_frames_packed(*args), {}),
+            ("qim_embed_check_kernel",
+             lambda: sk.embed_and_check_frames(*args), {"gpu_memset": 1.0})):
         summ = dr.parse_device_timeline(
             dr._trace(fn, 4, tmp_path / f"{name}.json"), 4)
         assert name in summ["kernel_name"], summ
-        assert summ["kernel_count"] == 4 and summ["glue_top"] == [], summ
+        assert summ["kernel_count"] == 4, summ
+        assert summ["glue_per_iter"] == glue, summ
 
 
 def test_fused_kernels_launch_once_each(dev):

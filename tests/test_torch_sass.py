@@ -1,10 +1,10 @@
 """The SASS and ptxas readers of stegotpu_torch/studies/sass.py, and the
-build list of studies/k1_cap.py, on text made here: no cuobjdump,
+build list of studies/stripe_cap.py, on text made here: no cuobjdump,
 no nvcc, no card."""
 
 import pytest
 
-from stegotpu_torch.studies import k1_cap, sass
+from stegotpu_torch.studies import sass, stripe_cap
 
 ANON = "_ZN46_GLOBAL__N__37f1a9c4_13_qim_stripe_cu_3417f3f1"
 
@@ -59,10 +59,16 @@ def test_split_functions_and_ptxas_report():
 
 
 def test_cap_builds_of_the_minb_option():
-    assert k1_cap.variants_of("") == [("library", None)]
-    assert k1_cap.variants_of("1,9") == [
-        ("library", None), ("minb_1", {"STEGOTPU_K1_MINB": 1}),
-        ("minb_9", {"STEGOTPU_K1_MINB": 9})]
-    for bad in ("0", "8/16", "x"):
+    assert stripe_cap.variants_of("") == [("library", None)]
+    assert stripe_cap.variants_of("k1:1,k3:8,k4:4", "step1=/tmp/a") == [
+        ("library", None),
+        ("k1_minb_1", {"defines": {"STEGOTPU_K1_MINB": 1}}),
+        ("k3_minb_8", {"defines": {"STEGOTPU_K3_MINB": 8}}),
+        ("k4_minb_4", {"defines": {"STEGOTPU_K4_MINB": 4}}),
+        ("step1", {"src": "/tmp/a"})]
+    for bad in ("k1:0", "k1:8/16", "k1:x", "9", "k2:8"):
         with pytest.raises(ValueError, match="CTAs per SM"):
-            k1_cap.variants_of(bad)
+            stripe_cap.variants_of(bad)
+    for bad in ("step1", "=/tmp/a", "library=/tmp/a"):
+        with pytest.raises(ValueError, match="name=DIR"):
+            stripe_cap.variants_of("", bad)

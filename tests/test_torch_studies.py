@@ -43,7 +43,7 @@ from stegotpu.ops.exactness import TOL_ABS, TOL_REL
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
                                     dualchain_r5, extract_ablation,
-                                    k1_cap, roofline_r4)
+                                    roofline_r4, stripe_cap)
 
 REPO = Path(__file__).resolve().parents[1]
 DELTA = 20.0
@@ -501,6 +501,8 @@ def test_device_timeline_summary():
     assert glue["elementwise_kernel clamp"]["per_iter_ms"] == pytest.approx(0.5)
     assert glue["Memset (Device)"]["total_ms"] == pytest.approx(0.03)
     assert "void spin_kernel(long)" not in glue
+    assert s["glue_per_iter"] == {"gpu_memset": pytest.approx(1 / 3),
+                                  "kernel": pytest.approx(1.0)}
 
 
 def test_device_timeline_without_device_events():
@@ -555,7 +557,7 @@ def test_queued_ms_retakes_a_reading_the_host_fell_behind_on(
 
 @pytest.mark.parametrize("mod", [extract_ablation, ab_packed_payload,
                                  dualchain_r5, roofline_r4, device_roofline,
-                                 k1_cap],
+                                 stripe_cap],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_study_main_exits_nonzero_without_cuda(mod, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -12,7 +12,7 @@ study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
 kernel's registers and spills (ptxas) and the opcode counts of K1-K4
 from cuobjdump -sass of the library (failing if the Hopper arithmetic of
 any of them holds a conversion instruction or a shared load), and runs
-thirteen phases:
+fourteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -54,7 +54,19 @@ thirteen phases:
      roofline's fused_buf3/4;
 13.  the command line at full width (stegotpu_torch.cli, in process):
      fixtures, genkey, embed, extract, inspect, steganalyze, capacity,
-     evaluate, selftest and bench on a 1920x1080 cover.
+     evaluate, selftest and bench on a 1920x1080 cover;
+14.  the parallel layer (stegotpu_torch.parallel) at 1920x1080, the paths
+     of K1 and K2 behind a mesh, segment workers and ranks: the mesh
+     library on grids that repeat the card ((2, 1), (1, 3), (2, 3) at B=8)
+     byte-identical to the unsharded K1 and K2, with K1 launched once a
+     shard at space 1 and once a frame of each shard otherwise; a
+     24-frame file embedded through a --mesh data=1 mesh equal to the
+     plain pipeline's, the verified embed through it on a letterboxed
+     cover; extract with --procs 2 in thread and spawn mode (the spawn
+     worker never initialises CUDA) and a 2-rank dist-extract over Gloo,
+     each with the secret back pixel-identical and its host-clock time;
+     embed --procs 2 and dist-embed, which need the native packet concat:
+     run where it is built, else checked for their one-line failure.
 
 Every phase prints; any failure exits non-zero. The line before the last
 is a JSON object with each kernel's route, source, launches on its path,
@@ -72,8 +84,9 @@ is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
 stegotpu_torch (which imports cryptography, Pillow and cv2 only in the
-file-to-file phases and the command line's, phase 13, which fails without
-them).
+file-to-file phases and the command line's, phases 13 and 14, which fail
+without them). Phase 14 starts two processes of the port's command line
+twice, on a free localhost port, and waits at most four minutes for them.
 """
 
 from __future__ import annotations
@@ -580,6 +593,7 @@ def main() -> int:
     times.update(times12)
     queued.update(queued12)
     _cli()                                                    # phase 13
+    _parallel(dev, rng, gpu)                                  # phase 14
 
     stripe = ("stegotpu_torch/csrc/qim_stripe.cu", "stegotpu/ops/pallas_kernel.py")
     kron = ("stegotpu_torch/csrc/qim_kron.cu",
@@ -893,14 +907,13 @@ def _tf32_sentinel(dev) -> None:
           flush=True)
 
 
-def _letterboxed(rng, b: int, bar: int = 136):
-    """(b, 1080, 1920) u8: black bars of `bar` rows above and below a
-    picture of luma 60..195 (136 rows = 17 block rows: no block straddles
-    the edge)."""
+def _letterboxed(rng, b: int, bar: int = 136, h: int = 1080, w: int = 1920):
+    """(b, h, w) u8: black bars of `bar` rows above and below a picture of
+    luma 60..195 (136 rows = 17 block rows: no block straddles the edge)."""
     import numpy as np
 
-    frames = np.zeros((b, 1080, 1920), np.uint8)
-    frames[:, bar:-bar] = rng.integers(60, 196, (b, 1080 - 2 * bar, 1920),
+    frames = np.zeros((b, h, w), np.uint8)
+    frames[:, bar:-bar] = rng.integers(60, 196, (b, h - 2 * bar, w),
                                        dtype=np.uint8)
     return frames
 
@@ -1630,9 +1643,9 @@ def _pipe(dev, rng, gpu: str, sets: list):
     return errs, launches, times, queued
 
 
-def _cli_run(*argv) -> tuple[int, str, str]:
+def _cli_run(*argv, phase: int = 13) -> tuple[int, str, str]:
     """stegotpu_torch.cli.main(argv) in this process: (exit code, stdout,
-    stderr), each output line echoed under phase 13."""
+    stderr), each output line echoed under `phase`."""
     import io
 
     from stegotpu_torch.cli import main as cli_main
@@ -1644,8 +1657,9 @@ def _cli_run(*argv) -> tuple[int, str, str]:
     seconds = time.perf_counter() - t0
     for stream, text in (("out", out.getvalue()), ("err", err.getvalue())):
         for line in text.splitlines():
-            print(f"phase 13 {argv[0]} {stream}: {line}", flush=True)
-    print(f"phase 13 {' '.join(argv)}: exit {rc}, {seconds:.2f} s host clock",
+            print(f"phase {phase} {argv[0]} {stream}: {line}", flush=True)
+    print(f"phase {phase} {' '.join(argv)}: exit {rc}, {seconds:.2f} s host "
+          "clock",
           flush=True)
     return rc, out.getvalue(), err.getvalue()
 
@@ -1725,6 +1739,320 @@ def _cli() -> None:
               f"bench launched ROUNDTRIP_LAUNCHES={sk.ROUNDTRIP_LAUNCHES}")
         print(f"phase 13 bench ({row['gpu']}; ROUNDTRIP_LAUNCHES="
               f"{sk.ROUNDTRIP_LAUNCHES}): {json.dumps(row)}", flush=True)
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(*argv, timeout: float = 240.0) -> tuple[list, float]:
+    """`python -m stegotpu_torch.cli <argv> --coordinator ... --process-id
+    i` as two processes of one Gloo group on a free localhost port, both on
+    the card: ([(exit code, output)] by rank, host seconds). Both are
+    killed if either outlives `timeout`."""
+    import os
+    import subprocess
+
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "stegotpu_torch.cli", *argv, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(f"phase 14 {argv[0]} rank {rank}: {line}", flush=True)
+    return [(p.returncode, out) for p, out in zip(procs, outs)], seconds
+
+
+def _decoded(path):
+    """Every frame of a video, BGR, as one array (stegotpu_torch.video)."""
+    import numpy as np
+
+    from stegotpu_torch.video import VideoReader
+
+    with VideoReader(path) as reader:
+        return np.concatenate(list(reader.batches(8)))
+
+
+def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
+    """Phase 14: the parallel layer (stegotpu_torch.parallel) on the card,
+    1920x1080 (h x w), delta 20, num_ac 10.
+
+    The mesh library on grids that repeat the card, (2, 1), (1, 3) and
+    (2, 3) at B=8 on a uniform 16..239 cover: stego and bits per frame
+    byte-identical to one unsharded K1 call, bits to the unsharded K2 and
+    unpack, the round-trip step 0 errors there and, on a letterboxed cover,
+    the unsharded count_wrong_bits (non-zero); K1 launched n_data times at
+    space 1 and B*space times otherwise, K2 once a shard. Then file to file
+    on a 24-frame 1080p cover: the embed through a --mesh data=1 mesh equals
+    the plain pipeline's frame for frame (same seeded crypto stream), the
+    verified embed through the mesh works on a letterboxed cover, the plain
+    extract, `extract --procs 2` in thread and spawn mode (a spawn worker
+    never initialises CUDA) and a 2-rank dist-extract return the secret
+    pixel-identical; `embed --procs 2` and dist-embed, which stitch with the
+    native packet concat, run where it is built and otherwise fail with one
+    line naming it, leaving no segment file. Host-clock lines for the four
+    extracts. cryptography, Pillow and cv2 are required."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch import crypto
+    from stegotpu_torch.config import StegoConfig
+    from stegotpu_torch.image import load_image_gray, save_image_gray
+    from stegotpu_torch.native.videoio import available
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.parallel.local_procs import _make_pool, _segment_bits
+    from stegotpu_torch.parallel.mesh import (make_mesh, product_mesh,
+                                              sharded_embed_frames,
+                                              sharded_extract_frames,
+                                              sharded_roundtrip_step)
+    from stegotpu_torch.pipeline import (embed_image_in_video,
+                                         extract_image_from_video)
+    from stegotpu_torch.utils.profiling import StageTimer
+    from stegotpu_torch.video import VideoReader, VideoWriter
+
+    t_phase = time.perf_counter()
+    b = 8
+    cap = (h // 8) * (w // 8) * NUM_AC
+    bar = 136 * h // 1080 // 8 * 8
+    frames = torch.from_numpy(
+        rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
+    boxed = torch.from_numpy(_letterboxed(rng, b, bar, h, w)).to(dev)
+    payload = torch.from_numpy(
+        rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+    total = int(0.7 * b * cap) + 13  # ends mid-frame, inside a stripe
+    one_stego, one_bpf = sk.embed_frames(frames, payload, total, DELTA, NUM_AC)
+    one_bits = sk.extract_frames(one_stego, DELTA, NUM_AC)
+    box_stego, _ = sk.embed_frames(boxed, payload, total, DELTA, NUM_AC)
+    box_errors = int(sk.count_wrong_bits(
+        sk.extract_frames(box_stego, DELTA, NUM_AC), payload, total).sum())
+    check(box_errors > 0, "test premise: K1 must lose bits on the "
+          "letterboxed cover")
+    for n_data, n_space in ((2, 1), (1, 3), (2, 3)):
+        mesh = make_mesh(n_data, n_space, [dev] * (n_data * n_space))
+        _set_counts()
+        t0 = time.perf_counter()
+        stego, bpf = sharded_embed_frames(mesh, NUM_AC, kernel="pallas")(
+            frames, payload, total, DELTA)
+        k1 = sk.EMBED_LAUNCHES
+        bits = sharded_extract_frames(mesh, NUM_AC, kernel="pallas")(
+            one_stego, DELTA)
+        k2 = sk.EXTRACT_LAUNCHES
+        step = sharded_roundtrip_step(mesh, NUM_AC, kernel="pallas")
+        s_step, b_step, x_step, e_step = step(frames, payload, total, DELTA)
+        _, _, _, e_box = step(boxed, payload, total, DELTA)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        grid = f"data={n_data},space={n_space}"
+        want_k1 = n_data if n_space == 1 else b * n_space
+        check(torch.equal(stego, one_stego) and torch.equal(bpf, one_bpf),
+              f"mesh {grid}: stego or bits per frame differ from one K1 call")
+        check(torch.equal(bits, one_bits),
+              f"mesh {grid}: bits differ from the unsharded K2 + unpack")
+        check(torch.equal(s_step, one_stego) and torch.equal(b_step, one_bpf)
+              and torch.equal(x_step, one_bits) and int(e_step) == 0,
+              f"mesh {grid}: round-trip step differs or errs ({int(e_step)})")
+        check(int(e_box) == box_errors,
+              f"mesh {grid}: step counts {int(e_box)} errors on the "
+              f"letterboxed cover, count_wrong_bits {box_errors}")
+        check(k1 == want_k1 and k2 == n_data * n_space,
+              f"mesh {grid}: EMBED_LAUNCHES {k1} (want {want_k1}), "
+              f"EXTRACT_LAUNCHES {k2} (want {n_data * n_space})")
+        print(f"phase 14 mesh {grid} over {mesh.devices.size} x {dev} "
+              f"{w}x{h} B=8: stego, bpf == one K1 call; bits == K2 + "
+              f"unpack; step errors 0, letterboxed {int(e_box)} == "
+              f"count_wrong_bits; EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES={k2}; "
+              f"{seconds:.3f} s host clock", flush=True)
+    del frames, boxed, payload, one_stego, one_bits, box_stego
+
+    cfg = StegoConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a 1024x768 secret spans 20 of the 24 frames: both --procs
+        # segments and both dist-extract ranks hold payload
+        secret = rng.integers(0, 256, (768 * h // 1080, 1024 * w // 1920),
+                              dtype=np.uint8)
+        save_image_gray(secret, tmp / "secret.png")
+        with VideoWriter(tmp / "cover.avi", 30.0, w, h) as writer:
+            for _ in range(3):
+                writer.write_bgr_batch(
+                    rng.integers(16, 240, (8, h, w, 3), dtype=np.uint8))
+        priv, pub = crypto.generate_keypair(rng)
+        crypto.save_keypair_pem(priv, tmp / "priv.pem", tmp / "pub.pem")
+        pub_c = crypto.serialize_public_compressed(pub)
+        key = crypto.load_private_pem(tmp / "priv.pem")
+
+        mesh = product_mesh("data=1")
+        _set_counts()
+        t0 = time.perf_counter()
+        res = embed_image_in_video(tmp / "cover.avi", tmp / "secret.png",
+                                   tmp / "mesh", pub_c, cfg, batch_frames=8,
+                                   rng=np.random.default_rng(14), mesh=mesh)
+        t_mesh = time.perf_counter() - t0
+        check(res.success and sk.EMBED_LAUNCHES > 0,
+              f"mesh file embed: {res.error}, EMBED_LAUNCHES "
+              f"{sk.EMBED_LAUNCHES}")
+        t0 = time.perf_counter()
+        plain = embed_image_in_video(tmp / "cover.avi", tmp / "secret.png",
+                                     tmp / "plain", pub_c, cfg,
+                                     batch_frames=8,
+                                     rng=np.random.default_rng(14),
+                                     device=dev)
+        t_plain = time.perf_counter() - t0
+        check(plain.success, f"plain file embed: {plain.error}")
+        check(np.array_equal(_decoded(res.output_path),
+                             _decoded(plain.output_path)),
+              "mesh file embed: decoded frames differ from the plain "
+              "pipeline's")
+        stego = res.output_path
+        _set_counts()
+        out = extract_image_from_video(stego, key, cfg, tmp / "x_mesh.png",
+                                       mesh=mesh)
+        check(out.success and out.hash_ok and np.array_equal(out.pixels,
+                                                             secret),
+              f"mesh file extract: {out.error}")
+        print(f"phase 14 file --mesh data=1 {w}x{h}: "
+              f"{res.total_payload_bits} bits in {res.frames_used} frames, "
+              f"decoded stego == the plain pipeline's, secret "
+              f"{secret.shape[1]}x{secret.shape[0]} pixel-identical, SHA3 ok; "
+              f"EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}; embed {t_mesh:.3f} s, "
+              f"plain pipeline's {t_plain:.3f} s host clock ({gpu})",
+              flush=True)
+
+        verified = StegoConfig(verified_embed=True)
+        with VideoWriter(tmp / "boxed.avi", 30.0, w, h) as writer:
+            writer.write_bgr_batch(
+                np.repeat(_letterboxed(rng, 6, bar, h, w)[..., None], 3,
+                          axis=-1))
+        small = rng.integers(0, 256, (240 * h // 1080, 320 * w // 1920),
+                             dtype=np.uint8)
+        save_image_gray(small, tmp / "small.png")
+        vres = embed_image_in_video(tmp / "boxed.avi", tmp / "small.png",
+                                    tmp / "boxed_st", pub_c, verified,
+                                    mesh=mesh)
+        check(vres.success and vres.residual_bits == 0,
+              f"verified mesh embed: {vres.error}")
+        vout = extract_image_from_video(vres.output_path, key, cfg,
+                                        device=dev)
+        check(vout.success and vout.hash_ok
+              and np.array_equal(vout.pixels, small),
+              f"verified mesh extract: {vout.error}")
+        print(f"phase 14 verified file --mesh data=1 {w}x{h} letterboxed: "
+              f"{vres.total_payload_bits} bits, residual 0, secret "
+              "pixel-identical", flush=True)
+
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        out = extract_image_from_video(stego, key, cfg, tmp / "x_plain.png",
+                                       timer=timer, device=dev)
+        times = {"plain": time.perf_counter() - t0}
+        check(out.success and out.hash_ok and np.array_equal(out.pixels,
+                                                             secret),
+              f"plain extract: {out.error}")
+        for mode in ("thread", "spawn"):
+            _set_counts()
+            t0 = time.perf_counter()
+            rc, text, err = _cli_run(
+                "extract", str(stego), str(tmp / f"x_{mode}.png"),
+                "--private-key", str(tmp / "priv.pem"), "--procs", "2",
+                "--procs-mode", mode, phase=14)
+            times[mode] = time.perf_counter() - t0
+            check(rc == 0 and "SHA3-256 integrity: OK" in text
+                  and np.array_equal(load_image_gray(tmp / f"x_{mode}.png"),
+                                     secret),
+                  f"extract --procs 2 --procs-mode {mode}: {err[-2000:]}")
+            if mode == "thread":
+                check(sk.EXTRACT_LAUNCHES > 0, "extract --procs 2 thread "
+                      "launched no K2")
+        with VideoReader(stego) as reader:
+            gray = next(reader.batches(8, mode="gray"))
+        with _make_pool("spawn", 1) as pool:
+            cpu_bits = pool.submit(_segment_bits, str(stego), 0, 8, h, w,
+                                   cfg, 8, torch.device("cpu")).result()
+            cuda_state = (pool.submit(torch.cuda.is_available).result(),
+                          pool.submit(torch.cuda.is_initialized).result())
+        card_bits = _segment_bits(str(stego), 0, 8, h, w, cfg, 8, dev)
+        near = _near_boundary(torch.from_numpy(gray).to(dev), DELTA,
+                              NUM_AC).reshape(-1)
+        off = int(((cpu_bits != card_bits) & ~near).sum())
+        check(cuda_state == (False, False) and off == 0,
+              f"spawn worker: cuda available/initialised {cuda_state}, "
+              f"{off} bits off the card's outside the envelope")
+        print("phase 14 spawn worker: torch.cuda.is_available() False, "
+              "is_initialized() False after a segment; its plain K2 bits "
+              f"of frames 0-7 == the card's outside the envelope "
+              f"({int((cpu_bits != card_bits).sum())} inside)", flush=True)
+
+        ranks, times["dist"] = _ranks(
+            "dist-extract", str(stego), str(tmp / "x_dist.png"),
+            "--private-key", str(tmp / "priv.pem"))
+        check(all(rc == 0 for rc, _ in ranks)
+              and "SHA3-256 integrity: OK" in ranks[0][1]
+              and np.array_equal(load_image_gray(tmp / "x_dist.png"), secret),
+              f"dist-extract: exit codes {[rc for rc, _ in ranks]}")
+        print(f"phase 14 timing 24-frame {w}x{h} extract, payload of 20 frames "
+              f"({gpu}): plain {times['plain']:.3f} s (timer= "
+              f"{timer.report().replace(chr(10), '; ')}), --procs 2 thread "
+              f"{times['thread']:.3f} s, --procs 2 spawn {times['spawn']:.3f} "
+              f"s, dist-extract 2 ranks {times['dist']:.3f} s (two process "
+              "starts included); host clock, findings only", flush=True)
+
+        if available():
+            rc, _, err = _cli_run(
+                "embed", str(tmp / "cover.avi"), str(tmp / "secret.png"),
+                str(tmp / "par"), "--public-key", str(tmp / "pub.pem"),
+                "--procs", "2", phase=14)
+            check(rc == 0, f"embed --procs 2: {err[-2000:]}")
+            ranks, _ = _ranks("dist-embed", str(tmp / "cover.avi"),
+                              str(tmp / "secret.png"), str(tmp / "dist"),
+                              "--public-key", str(tmp / "pub.pem"))
+            check(all(rc == 0 for rc, _ in ranks), "dist-embed failed")
+            for name in ("par.avi", "dist.avi"):
+                x = extract_image_from_video(tmp / name, key, cfg, device=dev)
+                check(x.success and np.array_equal(x.pixels, secret),
+                      f"{name}: {x.error}")
+            print("phase 14 embed --procs 2 and dist-embed (native concat "
+                  "built): secret pixel-identical", flush=True)
+        else:
+            rc, _, err = _cli_run(
+                "embed", str(tmp / "cover.avi"), str(tmp / "secret.png"),
+                str(tmp / "par"), "--public-key", str(tmp / "pub.pem"),
+                "--procs", "2", phase=14)
+            lines = err.strip().splitlines()
+            check(rc == 1 and len(lines) == 1 and lines[0].startswith(
+                "error: --procs needs the native concat layer"),
+                f"embed --procs 2 without the concat: exit {rc}, {err}")
+            ranks, _ = _ranks("dist-embed", str(tmp / "cover.avi"),
+                              str(tmp / "secret.png"), str(tmp / "dist"),
+                              "--public-key", str(tmp / "pub.pem"))
+            check([rc for rc, _ in ranks] == [1, 0] and
+                  "error: dist-embed needs the native concat layer"
+                  in ranks[0][1],
+                  f"dist-embed without the concat: exit codes "
+                  f"{[rc for rc, _ in ranks]}")
+            print("phase 14 embed --procs 2 and dist-embed without the "
+                  "native concat layer: exit 1 naming it (dist-embed: rank "
+                  "0 in its preflight, rank 1 exit 0)", flush=True)
+        left = sorted(p.name for p in tmp.glob("*seg*"))
+        check(not left and (tmp / "par.avi").exists() == available(),
+              f"segment files left behind: {left}")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s host clock",
+          flush=True)
+
 
 if __name__ == "__main__":
     try:

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: embed / extract (+ batch and
+"""Command-line interface of the port: embed / extract (+ batch, dist and
 segment variants) / genkey / evaluate / capacity / inspect / steganalyze /
 fixtures / selftest / concat / bench.
 
@@ -9,13 +9,15 @@ the host. ``python -m stegotpu_torch.cli`` or ``stegotpu-torch``.
 
 The global ``--device`` takes the place of the JAX CLI's ``--platform``:
 the entry points' ``device`` argument, the card by default and ``cpu`` to
-run the kernels' plain versions (the tests do). ``selftest`` re-proves the
-kernels' exactness on the card (``ops/exactness.quick_exactness_check``)
-where the JAX CLI does so on a TPU. What the port does not have yet exits
-1 with one line naming its ROADMAP item, as the pipeline's ``_not_ported``
-does: ``--mesh``, ``--procs`` other than 1 and ``--procs-mode spawn``
-(M11 ``parallel/``), ``dist-embed`` and ``dist-extract`` (M11),
-``serve`` (M12, the server).
+run the kernels' plain versions (the tests do). The global
+``--host-devices N`` gives a ``--mesh`` N CPU devices with ``--device cpu``
+(on the card, a mesh spans the CUDA cards). ``dist-embed`` and
+``dist-extract`` form a torch.distributed (Gloo) group from
+``--coordinator``, ``--num-processes`` and ``--process-id``. ``selftest``
+re-proves the kernels' exactness on the card
+(``ops/exactness.quick_exactness_check``) where the JAX CLI does so on a
+TPU. What the port does not have yet exits 1 with one line naming its
+ROADMAP item: ``serve`` (M12, the server).
 """
 
 from __future__ import annotations
@@ -28,11 +30,6 @@ from pathlib import Path
 from stegotpu_torch.config import StegoConfig
 
 NOT_PORTED = {
-    "mesh": ("--mesh (a device mesh)", "M11 parallel/"),
-    "procs": ("--procs (segment-parallel workers)", "M11 parallel/"),
-    "procs-mode": ("--procs-mode spawn (process workers)", "M11 parallel/"),
-    "dist-embed": ("dist-embed", "M11 parallel/"),
-    "dist-extract": ("dist-extract", "M11 parallel/"),
     "serve": ("serve", "M12, the server"),
 }
 
@@ -55,7 +52,8 @@ def _config_from_args(args) -> StegoConfig:
 
 
 def _procs_arg(v: str):
-    """--procs value: a worker count, or 'auto'."""
+    """--procs value: a worker count, or 'auto' = min(host cores, segments)
+    (parallel.local_procs.resolve_procs)."""
     if v == "auto":
         return v
     try:
@@ -65,17 +63,12 @@ def _procs_arg(v: str):
             f"--procs takes an integer or 'auto', got {v!r}") from None
 
 
-def _unported_flags(args) -> str | None:
-    """The key of NOT_PORTED for a requested flag the port lacks, or None:
-    a device mesh, a parallel run ('auto' or N > 1), or process workers."""
-    if getattr(args, "mesh", None):
-        return "mesh"
+def _procs_requested(args) -> tuple:
+    """(procs, mode, active): the --procs/--procs-mode pair; active when
+    a parallel run was requested ('auto' or N > 1)."""
     procs = getattr(args, "procs", 1) or 1
-    if procs == "auto" or int(procs) > 1:
-        return "procs"
-    if getattr(args, "procs_mode", "thread") != "thread":
-        return "procs-mode"
-    return None
+    mode = getattr(args, "procs_mode", "thread")
+    return procs, mode, procs == "auto" or int(procs) > 1
 
 
 def _add_qim_flags(p: argparse.ArgumentParser) -> None:
@@ -94,15 +87,45 @@ def _add_qim_flags(p: argparse.ArgumentParser) -> None:
 
 def _add_mesh_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh", default=None, metavar="data=N,space=M",
-                   help="a device mesh (not ported yet: M11)")
+                   help="scatter each batch over a device mesh: frames on "
+                        "the 'data' axis, 8-px block rows on 'space' "
+                        "(e.g. data=4,space=2; needs N*M devices: the CUDA "
+                        "cards, or --device cpu --host-devices N)")
+
+
+def _mesh_from_args(args):
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from stegotpu_torch.parallel.mesh import local_devices, product_mesh
+
+    return product_mesh(spec, devices=local_devices(args.device,
+                                                    args.host_devices))
+
+
+def _device_and_mesh(args):
+    """(device, mesh) for a pipeline call: a --mesh names its own devices,
+    so the pipeline then takes no device."""
+    mesh = _mesh_from_args(args)
+    return (args.device if mesh is None else None), mesh
 
 
 def _add_procs_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--procs", type=_procs_arg, default=1, metavar="N|auto",
-                   help="segment-parallel workers (only 1 is ported; M11)")
+                   help="run N segment-parallel worker pipelines on this "
+                        "host (one seal, exact-seek segments; embed "
+                        "stitches by packet concat, pixel-identical to "
+                        "--procs 1, and needs the native layer); 'auto' = "
+                        "min(cores, segments)")
     p.add_argument("--procs-mode", choices=["thread", "spawn"],
                    default="thread",
-                   help="worker kind (only thread is ported; M11)")
+                   help="worker kind: 'thread' (default; the codec and "
+                        "kernel stages release the GIL; the caller's "
+                        "device) or 'spawn' OS processes that compute the "
+                        "plain versions on the CPU and never open the card "
+                        "(on the card their stego may differ from the CUDA "
+                        "kernels' by ±1 pixel level at f32 rounding "
+                        "boundaries, same wire bits)")
 
 
 def _add_codec_flag(p: argparse.ArgumentParser) -> None:
@@ -224,9 +247,6 @@ def _sealed_state(args, pub: bytes):
 def cmd_embed(args) -> int:
     from stegotpu_torch.pipeline import embed_image_in_video
 
-    unported = _unported_flags(args)
-    if unported:
-        return _not_ported(unported)
     if getattr(args, "auto_fixtures", False):
         # reference parity (opt-in): missing inputs are generated
         # (config_and_setup.py:219-238, its README.md:134-137)
@@ -262,11 +282,46 @@ def cmd_embed(args) -> int:
         if isinstance(sealed, int):
             return sealed
 
-    res = embed_image_in_video(
-        args.cover, args.secret, args.output, pub, _config_from_args(args),
-        batch_frames=args.batch, timer=timer, frame_range=frame_range,
-        sealed_bits=sealed, device=args.device,
-    )
+    procs, procs_mode, procs_active = _procs_requested(args)
+    if procs_active and procs == "auto" and (
+            frame_range is not None or getattr(args, "mesh", None)):
+        # 'auto' means "pick the best mode for this invocation" — with
+        # --frame-range/--mesh the segment cutter can't run, and the plain
+        # pipeline handles both, so auto resolves to it (an explicit
+        # --procs N>1 still conflicts loudly below)
+        print("note: --procs auto defers to the plain pipeline "
+              "(--frame-range/--mesh handle their own partitioning)",
+              file=sys.stderr)
+        procs_active = False
+    if procs_active:
+        if frame_range is not None:
+            print("error: --procs cuts its own segments; it cannot combine "
+                  "with --frame-range", file=sys.stderr)
+            return 1
+        if getattr(args, "mesh", None):
+            print("error: --procs (host-parallel segments) and --mesh "
+                  "(device mesh) cannot combine; use dist-embed for the "
+                  "full hierarchy", file=sys.stderr)
+            return 1
+        if timer is not None:
+            print("note: --timing is per-pipeline; stage breakdowns are "
+                  "not collected across --procs workers", file=sys.stderr)
+            timer = None
+        from stegotpu_torch.parallel.local_procs import parallel_embed
+
+        res = parallel_embed(
+            args.cover, args.secret, args.output, pub,
+            _config_from_args(args), batch_frames=args.batch, procs=procs,
+            sealed_bits=sealed, mode=procs_mode, device=args.device,
+        )
+    else:
+        device, mesh = _device_and_mesh(args)
+        res = embed_image_in_video(
+            args.cover, args.secret, args.output, pub,
+            _config_from_args(args), batch_frames=args.batch, timer=timer,
+            mesh=mesh, frame_range=frame_range, sealed_bits=sealed,
+            device=device,
+        )
     _report_timer(timer)
     if not res.success:
         if res.residual_bits:
@@ -291,17 +346,39 @@ def cmd_extract(args) -> int:
     from stegotpu_torch import crypto
     from stegotpu_torch.pipeline import extract_image_from_video
 
-    unported = _unported_flags(args)
-    if unported:
-        return _not_ported(unported)
     priv = crypto.load_private_pem(args.private_key)
     timer = _make_timer(args)
     cfg = _config_from_args(args)
+    procs, procs_mode, procs_active = _procs_requested(args)
+    if procs_active and getattr(args, "mesh", None):
+        if procs == "auto":
+            # auto picks the best mode for the invocation: --mesh shards
+            # on the devices, the plain pipeline drives it (see cmd_embed)
+            print("note: --procs auto defers to the plain pipeline "
+                  "(--mesh handles its own partitioning)", file=sys.stderr)
+            procs_active = False
+        else:
+            print("error: --procs (host-parallel segments) and --mesh "
+                  "(device mesh) cannot combine; use dist-extract for the "
+                  "full hierarchy", file=sys.stderr)
+            return 1
+    device, mesh = (args.device, None) if procs_active else \
+        _device_and_mesh(args)
 
     def run(run_cfg):
+        if procs_active:
+            if timer is not None:
+                print("note: --timing is per-pipeline; stage breakdowns "
+                      "are not collected across --procs workers",
+                      file=sys.stderr)
+            from stegotpu_torch.parallel.local_procs import parallel_extract
+
+            return parallel_extract(args.stego, priv, run_cfg, args.output,
+                                    batch_frames=args.batch, procs=procs,
+                                    mode=procs_mode, device=device)
         return extract_image_from_video(args.stego, priv, run_cfg, args.output,
                                         batch_frames=args.batch, timer=timer,
-                                        device=args.device)
+                                        mesh=mesh, device=device)
 
     res = run(cfg)
     if not res.success and getattr(args, "auto_params", False):
@@ -456,17 +533,101 @@ def cmd_extract_batch(args) -> int:
     return 1 if failures else 0
 
 
+def _dist_init(args) -> int:
+    """Join the torch.distributed group; returns this process's rank."""
+    from stegotpu_torch.parallel.distributed import initialize, process_index
+
+    initialize(args.coordinator, args.num_processes, args.process_id)
+    return process_index()
+
+
+def cmd_dist_embed(args) -> int:
+    """One process of a cooperative multi-process embed (run in each)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from stegotpu_torch.parallel.dist_pipeline import distributed_embed
+
+    _dist_init(args)
+    try:
+        pub = _public_key(args.public_key)
+        rng = (np.random.default_rng(args.seed) if args.seed is not None
+               else None)
+        # the mesh spec resolves INSIDE distributed_embed so a process whose
+        # devices can't satisfy it still joins the preflight collective (an
+        # early local exit here would hang every peer)
+        res = distributed_embed(args.cover, args.secret, args.output, pub,
+                                _config_from_args(args),
+                                batch_frames=args.batch, rng=rng,
+                                mesh_spec=args.mesh, device=args.device,
+                                host_devices=args.host_devices)
+    finally:
+        dist.destroy_process_group()
+    if res is None:  # non-zero rank: its segment status was logged
+        return 0
+    if not res.success:
+        reason = res.error or (f"{res.bits_embedded}/"
+                               f"{res.total_payload_bits} bits fit in the "
+                               "video")
+        print(f"DIST EMBED FAILED: {reason}", file=sys.stderr)
+        return 1
+    print(f"embedded {res.total_payload_bits} bits into '{res.output_path}' "
+          f"({res.frames_used} frames, {args.num_processes} hosts)")
+    psnr = res.first_frame_psnr
+    if psnr is not None:
+        print(f"first-frame PSNR (original vs stego gray): {psnr:.2f} dB")
+    return 0
+
+
+def cmd_dist_extract(args) -> int:
+    """One process of a cooperative multi-process extract."""
+    import torch.distributed as dist
+
+    from stegotpu_torch import crypto
+    from stegotpu_torch.parallel.dist_pipeline import distributed_extract
+
+    rank = _dist_init(args)
+    try:
+        priv = crypto.load_private_pem(args.private_key)
+        res = distributed_extract(args.stego, priv, _config_from_args(args),
+                                  args.output, batch_frames=args.batch,
+                                  mesh_spec=args.mesh, device=args.device,
+                                  host_devices=args.host_devices)
+    finally:
+        dist.destroy_process_group()
+    if not res.success:
+        print(f"DIST EXTRACT FAILED: {res.error}", file=sys.stderr)
+        return 1
+    if rank == 0:
+        if res.is_raw_data:
+            print(f"extracted {len(res.data)} bytes of raw data to "
+                  f"'{res.output_path}'")
+        else:
+            print(f"extracted {res.parts.secret_width}x"
+                  f"{res.parts.secret_height} image to '{res.output_path}'")
+        print("SHA3-256 integrity:",
+              "OK" if res.hash_ok else "MISMATCH (payload may be corrupt)")
+    return 0
+
+
 def cmd_embed_data(args) -> int:
     from stegotpu_torch.pipeline import embed_data_in_video
 
-    unported = _unported_flags(args)
-    if unported:
-        return _not_ported(unported)
     data = Path(args.data_file).read_bytes()
-    res = embed_data_in_video(args.cover, data, args.output,
-                              _public_key(args.public_key),
-                              _config_from_args(args),
-                              batch_frames=args.batch, device=args.device)
+    pub = _public_key(args.public_key)
+    procs, procs_mode, procs_active = _procs_requested(args)
+    if procs_active:
+        from stegotpu_torch.parallel.local_procs import parallel_embed_data
+
+        res = parallel_embed_data(
+            args.cover, data, args.output, pub, _config_from_args(args),
+            batch_frames=args.batch, procs=procs, mode=procs_mode,
+            device=args.device,
+        )
+    else:
+        res = embed_data_in_video(args.cover, data, args.output, pub,
+                                  _config_from_args(args),
+                                  batch_frames=args.batch, device=args.device)
     if not res.success:
         reason = getattr(res, "error", None)
         if reason:
@@ -666,25 +827,31 @@ def cmd_selftest(args) -> int:
     from stegotpu_torch.pipeline import (embed_image_in_video,
                                          extract_image_from_video)
 
-    if getattr(args, "mesh", None):
-        return _not_ported("mesh")
-    device = resolve_device(args.device)
+    mesh = _mesh_from_args(args)
+    device = mesh.first_device if mesh is not None \
+        else resolve_device(args.device)
+    run_device = None if mesh is not None else device
     d = Path(args.dir or tempfile.mkdtemp(prefix="stegotpu-torch-selftest-"))
     d.mkdir(parents=True, exist_ok=True)
     print(f"selftest dir: {d} (device {device})")
+    if mesh is not None:
+        print(f"mesh: data={mesh.shape['data']} x space="
+              f"{mesh.shape['space']} ({mesh.devices.size} devices, "
+              f"{device.type})")
     make_secret_image(d / "secret.png", 32, 32, kind="pattern")
     make_cover_video(d / "cover.mp4", 640, 480, frames=24, kind="moving")
     priv, pub_c = crypto.setup_receiver_keys(d / "priv.pem", d / "pub.pem")
     cfg = _config_from_args(args)
     res = embed_image_in_video(d / "cover.mp4", d / "secret.png", d / "stego",
-                               pub_c, cfg, device=device)
+                               pub_c, cfg, mesh=mesh, device=run_device)
     if not res.success:
         print("SELFTEST FAILED: embed did not complete", file=sys.stderr)
         return 1
     print(f"embedded {res.total_payload_bits} bits, "
           f"first-frame PSNR {res.first_frame_psnr:.2f} dB")
     ext = extract_image_from_video(res.output_path, priv, cfg,
-                                   d / "extracted.png", device=device)
+                                   d / "extracted.png", mesh=mesh,
+                                   device=run_device)
     if not ext.success:
         print(f"SELFTEST FAILED: extract: {ext.error}", file=sys.stderr)
         return 1
@@ -726,6 +893,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, metavar="DEVICE",
                    help="torch device of the QIM kernels (default: the CUDA "
                         "card; 'cpu' runs their plain PyTorch versions)")
+    p.add_argument("--host-devices", type=int, default=None, metavar="N",
+                   help="with --device cpu: N CPU devices for --mesh runs "
+                        "without a card")
     p.add_argument("--version", action="version",
                    version=f"stegotpu_torch {__version__}")
     sub = p.add_subparsers(dest="command", required=True)
@@ -797,13 +967,53 @@ def build_parser() -> argparse.ArgumentParser:
     _add_qim_flags(xb)
     xb.set_defaults(fn=cmd_extract_batch)
 
-    for name, help_ in (("dist-embed", "cooperative multi-host embed"),
-                        ("dist-extract", "cooperative multi-host extract"),
-                        ("serve", "JSON-over-HTTP daemon")):
-        d = sub.add_parser(name, help=f"{help_} (not ported yet)",
-                           prefix_chars="\0")
-        d.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
-        d.set_defaults(fn=lambda args, name=name: _not_ported(name))
+    def _add_dist_flags(p):
+        p.add_argument("--coordinator", required=True, metavar="HOST:PORT",
+                       help="rank 0's torch.distributed rendezvous address "
+                            "(any free port)")
+        p.add_argument("--num-processes", type=int, required=True)
+        p.add_argument("--process-id", type=int, required=True)
+        p.add_argument("--batch", type=int, default=8)
+        _add_qim_flags(p)
+
+    de = sub.add_parser(
+        "dist-embed",
+        help="cooperative multi-process embed (run one process per host; "
+             "needs the native concat layer)")
+    de.add_argument("cover")
+    de.add_argument("secret")
+    de.add_argument("output")
+    de.add_argument("--public-key", default="bob_public_key.pem")
+    de.add_argument("--seed", type=int, default=None,
+                    help="deterministic crypto stream (tests/demos only — "
+                         "weakens the ephemeral-key security!)")
+    de.add_argument("--verified", action="store_true",
+                    help="closed-loop embed repair per segment (BER=0 even "
+                         "on saturated covers)")
+    de.add_argument("--allow-residual", action="store_true")
+    de.add_argument("--mesh", default=None, metavar="data=N,space=M",
+                    help="PER-PROCESS device mesh for each segment (local "
+                         "devices; the cross-process scatter is the segment "
+                         "split)")
+    _add_dist_flags(de)
+    _add_codec_flag(de)
+    de.set_defaults(fn=cmd_dist_embed)
+
+    dx = sub.add_parser(
+        "dist-extract",
+        help="cooperative multi-process extract (run one process per host)")
+    dx.add_argument("stego")
+    dx.add_argument("output")
+    dx.add_argument("--private-key", default="bob_private_key.pem")
+    dx.add_argument("--mesh", default=None, metavar="data=N,space=M",
+                    help="PER-PROCESS device mesh for each segment's extract")
+    _add_dist_flags(dx)
+    dx.set_defaults(fn=cmd_dist_extract)
+
+    sv = sub.add_parser("serve", help="JSON-over-HTTP daemon (not ported yet)",
+                        prefix_chars="\0")
+    sv.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
+    sv.set_defaults(fn=lambda args: _not_ported("serve"))
 
     ed = sub.add_parser("embed-data",
                         help="embed an arbitrary file's bytes (extension mode)")

@@ -6,7 +6,8 @@ or edited); the library is built on demand (g++ + FFmpeg dev headers) into
 the port's git-ignored ``stegotpu_torch/_build/``. Exposes NativeVideoReader
 / NativeVideoWriter mirroring the cv2-backed classes in
 stegotpu_torch.video. `available()` reports whether the native path can be
-used; callers fall back to cv2 when it can't.
+used; callers fall back to cv2 when it can't. A failed build is reported
+by `build_error()` as one line, the compiler's first error.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def _load():
                         capture_output=True, text=True,
                     )
                     if proc.returncode != 0:
-                        _build_error = proc.stderr[-2000:]
+                        _build_error = _compiler_error(proc.stderr)
                         return None
                     os.replace(tmp, _SO)
         lib = ctypes.CDLL(str(_SO))
@@ -99,6 +100,17 @@ def _load():
     except Exception as e:  # pragma: no cover - environment dependent
         _build_error = str(e)
     return _lib
+
+
+def _compiler_error(stderr: str) -> str:
+    """One line for the messages that quote a failed build (`--procs`,
+    `dist-embed`, `concat` exit with one line): the compiler's first error
+    line, else its last line."""
+    lines = [ln.strip() for ln in stderr.splitlines() if ln.strip()]
+    for ln in lines:
+        if "error" in ln:
+            return ln
+    return lines[-1] if lines else "g++ failed without output"
 
 
 def available() -> bool:

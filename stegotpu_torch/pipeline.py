@@ -5,8 +5,8 @@ package's, line for line; only the device sites differ: arrays go to the
 device as ``torch.from_numpy(...).to(device)`` and come back as
 ``.cpu().numpy()``, on the ``device`` the caller names (no global device
 guessing). The verified embed runs the CUDA kernel K3 through
-ops/verified.py. The mesh branches are not ported yet and raise
-NotImplementedError.
+ops/verified.py. With a device mesh (parallel/mesh.py) each batch scatters
+over the mesh's devices: frames over 'data', 8-px block rows over 'space'.
 
 Same observable semantics as the reference's L3 orchestration
 (``embed_gambar_ke_video_final`` embed_process.py:17-152,
@@ -49,10 +49,45 @@ from stegotpu_torch.video import (FrameBudget, GraySwitch, Prefetcher,
 log = logging.getLogger("stegotpu_torch")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to stegotpu_torch yet (ROADMAP.md queue 1, "
-        f"{item}); use the JAX package stegotpu for it")
+def _mesh_setup(mesh, config: StegoConfig, h8: int, w8: int,
+                batch_frames: int) -> tuple[int, str]:
+    """Validate mesh geometry against the stream and pick the per-shard
+    kernel. Returns (possibly rounded-up batch_frames, 'xla'|'pallas').
+
+    Frames scatter over 'data' (batch must divide) and 8-px block rows over
+    'space' (H/8 must divide); the per-shard program is the single-device
+    kernel, chosen by the same dispatch rule as the unsharded path but at
+    the SHARD's height (each shard sees the full W).
+    """
+    from stegotpu_torch.config import BLOCK
+    from stegotpu_torch.ops.dispatch import _use_stripe_kernel
+
+    n_data, n_space = mesh.shape["data"], mesh.shape["space"]
+    if (h8 // BLOCK) % n_space:
+        raise ValueError(
+            f"space={n_space} does not divide the {h8 // BLOCK} block rows of "
+            f"this video ({h8}px); pick a divisor"
+        )
+    if batch_frames % n_data:
+        rounded = ((batch_frames + n_data - 1) // n_data) * n_data
+        log.info("batch_frames %d -> %d (multiple of data=%d)",
+                 batch_frames, rounded, n_data)
+        batch_frames = rounded
+    kern = ("pallas" if _use_stripe_kernel(config.kernel, h8 // n_space, w8)
+            else "xla")
+    return batch_frames, kern
+
+
+def _resolve(device, mesh) -> torch.device:
+    """The device of the unsharded work: with a mesh, the mesh's first
+    device (its devices run the kernels, so `device` must be None);
+    otherwise device.resolve_device(device)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        raise ValueError("pass a device or a mesh, not both: a mesh names "
+                         "the devices its shards run on")
+    return mesh.first_device
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -150,7 +185,10 @@ def embed_image_in_video(
 
     rng: optional numpy Generator for a DETERMINISTIC crypto stage
     (ephemeral key/salt/nonce) — test builds only; see payload.seal_payload.
-    mesh: not ported yet (must be None).
+    mesh: optional parallel.mesh.Mesh ('data', 'space') in place of
+    `device` — frames of each batch scatter over the 'data' axis and 8-px
+    block rows over 'space' (parallel.mesh); the host feeder and payload
+    slicing are unchanged because per-frame capacity is static.
     timer: optional object with a ``stage(name)`` context manager (the JAX
     package's utils.profiling.StageTimer shape) collecting decode_wait /
     device_dispatch / device_readback / encode stage totals.
@@ -206,11 +244,9 @@ def _embed_payload(
     cut on batch boundaries. sealed_bits: pre-sealed payload bits shared
     across hosts (crypto randomness must be identical on every segment).
     """
-    device = resolve_device(device)
+    device = _resolve(device, mesh)
     if config.delta <= 0:
         raise ValueError("embedding requires delta > 0 (delta <= 0 embeds nothing)")
-    if mesh is not None:
-        raise _not_ported("mesh embedding", "M11 parallel/")
     if sealed_bits is not None:
         all_bits = np.asarray(sealed_bits, dtype=np.uint8)
     else:
@@ -238,7 +274,43 @@ def _embed_payload(
             return EmbedResult(False, None, total, 0, 0,
                                error="zero embedding capacity per frame "
                                      "(num_ac_coeffs/frame size)")
-        if config.verified_embed:
+        if mesh is not None:
+            from stegotpu_torch.parallel.mesh import (sharded_embed_frames,
+                                                      sharded_roundtrip_step)
+
+            batch_frames, kern = _mesh_setup(mesh, config, h8, w8,
+                                             batch_frames)
+            if config.verified_embed:
+                # sharded analogue of embed_frames_verified_fast: the sharded
+                # step already re-extracts and sums the error count; the
+                # (rare) repair branch reruns the batch through the closed
+                # loop on the mesh's first device
+                from stegotpu_torch.ops.verified import embed_frames_verified
+
+                step = sharded_roundtrip_step(mesh, config.num_ac_coeffs,
+                                              kernel=kern,
+                                              precision=config.qim_precision)
+
+                def run_embed_verified(gray, seg, remaining):
+                    gray, seg = _to_device(gray, "cpu"), _to_device(seg, "cpu")
+                    stego, bpf, _bits, errors = step(gray, seg, remaining,
+                                                     float(config.delta))
+                    if int(errors) == 0:
+                        return stego, bpf, 0
+                    return embed_frames_verified(
+                        gray.to(device), seg.to(device), remaining,
+                        float(config.delta), config.num_ac_coeffs,
+                        repair_rounds=config.repair_rounds)
+            else:
+                sharded = sharded_embed_frames(mesh, config.num_ac_coeffs,
+                                               kernel=kern,
+                                               precision=config.qim_precision)
+
+                def run_embed(gray, seg, remaining):
+                    return sharded(_to_device(gray, "cpu"),
+                                   _to_device(seg, "cpu"), remaining,
+                                   float(config.delta))
+        elif config.verified_embed:
             from stegotpu_torch.ops.verified import embed_frames_verified_fast
 
             def run_embed_verified(gray, seg, remaining):
@@ -255,10 +327,16 @@ def _embed_payload(
                              remaining, float(config.delta),
                              config.num_ac_coeffs)
 
+        # Alignment is validated against the FINAL batch_frames — _mesh_setup
+        # above may have rounded it up to the mesh data axis, and an lo that
+        # aligned to the requested batch but not the rounded one would let
+        # pre-segment frames leak into this segment at wrong bit offsets.
         if lo % batch_frames:
             raise ValueError(
                 f"frame_range start {lo} must align to batch_frames="
-                f"{batch_frames}")
+                f"{batch_frames}"
+                + (" (rounded up to the mesh data axis)"
+                   if mesh is not None else ""))
 
         out_path = force_avi_path(video_out)
         cursor = min(total, lo * cap_bits)  # bits owned by earlier segments
@@ -551,12 +629,12 @@ def extract_image_from_video(
     ops/stripe_kernel.packed_rows_to_bits_host).
 
     timer: optional stage timer (see embed_image_in_video).
-    mesh: not ported yet (must be None).
+    mesh: optional ('data', 'space') mesh in place of `device` (see
+    embed_image_in_video) — extraction is purely local per shard (K2 and
+    the wire-order unpack on each), no reduction.
     device: the torch device the extract kernel runs on (None: the card).
     """
-    device = resolve_device(device)
-    if mesh is not None:
-        raise _not_ported("mesh extraction", "M11 parallel/")
+    device = _resolve(device, mesh)
     with VideoReader(stego_video) as reader:
         h8, w8 = reader.info.cropped
         if h8 == 0 or w8 == 0:
@@ -566,29 +644,47 @@ def extract_image_from_video(
             return ExtractResult(False, error="zero capacity (num_ac_coeffs=0?)")
         delta = float(config.delta)
 
-        packed = extract_packed_fn(config.kernel, h8, w8, config.qim_precision)
-        if packed is not None:
-            # stripe-kernel fast path: the device ships bit-PACKED compact
-            # rows and never runs the full-capacity wire-order unpack pass;
-            # the host reads back only the (frame, stripe-group) prefix the
-            # payload spans and unpacks in numpy (_PackedBitBuf).
-            from stegotpu_torch.ops.stripe_kernel import pick_stripe
+        if mesh is not None:
+            from stegotpu_torch.parallel.mesh import sharded_extract_frames
+
+            batch_frames, kern = _mesh_setup(mesh, config, h8, w8,
+                                             batch_frames)
+            sharded = sharded_extract_frames(mesh, config.num_ac_coeffs,
+                                             kernel=kern,
+                                             precision=config.qim_precision)
 
             def run_extract(gray):
-                return packed(_to_device(gray, device), delta,
-                              config.num_ac_coeffs)
-
-            buf = _PackedBitBuf(h8, w8, config.num_ac_coeffs,
-                                pick_stripe(h8), timer)
-        else:
-            extract = extract_fn(config.kernel, h8, w8, config.qim_precision)
-
-            def run_extract(gray):
-                return extract(_to_device(gray, device), delta,
-                               config.num_ac_coeffs)
+                return sharded(_to_device(gray, "cpu"), delta)
 
             buf = _EagerBitBuf(
                 lambda dev, n: dev[:n].cpu().numpy().reshape(-1), timer)
+        else:
+            packed = extract_packed_fn(config.kernel, h8, w8,
+                                       config.qim_precision)
+            if packed is not None:
+                # stripe-kernel fast path: the device ships bit-PACKED
+                # compact rows and never runs the full-capacity wire-order
+                # unpack pass; the host reads back only the (frame,
+                # stripe-group) prefix the payload spans and unpacks in
+                # numpy (_PackedBitBuf).
+                from stegotpu_torch.ops.stripe_kernel import pick_stripe
+
+                def run_extract(gray):
+                    return packed(_to_device(gray, device), delta,
+                                  config.num_ac_coeffs)
+
+                buf = _PackedBitBuf(h8, w8, config.num_ac_coeffs,
+                                    pick_stripe(h8), timer)
+            else:
+                extract = extract_fn(config.kernel, h8, w8,
+                                     config.qim_precision)
+
+                def run_extract(gray):
+                    return extract(_to_device(gray, device), delta,
+                                   config.num_ac_coeffs)
+
+                buf = _EagerBitBuf(
+                    lambda dev, n: dev[:n].cpu().numpy().reshape(-1), timer)
 
         # Two phases (reference: reads only until enough bits accumulate,
         # extract_process.py:55-86,173-182 — the batched equivalent):

@@ -251,19 +251,8 @@ def test_cli_segments_embed_data_and_selftest(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["embed", "c.mp4", "s.png", "o", "--mesh", "data=2,space=1"], "M11"),
-    (["embed", "c.mp4", "s.png", "o", "--procs", "2"], "M11"),
-    (["embed", "c.mp4", "s.png", "o", "--procs", "auto"], "M11"),
-    (["embed-data", "c.mp4", "d.bin", "o", "--procs", "4"], "M11"),
-    (["extract", "st.avi", "x.png", "--procs", "2"], "M11"),
-    (["embed", "c.mp4", "s.png", "o", "--procs-mode", "spawn"], "M11"),
-    (["extract", "st.avi", "x.png", "--procs-mode", "spawn"], "M11"),
-    (["extract", "st.avi", "x.png", "--mesh", "data=2,space=1"], "M11"),
-    (["selftest", "--mesh", "data=2,space=1"], "M11"),
-    (["dist-embed", "c.mp4", "s.png", "o", "--coordinator", "h:1",
-      "--num-processes", "2", "--process-id", "0"], "M11"),
-    (["dist-extract", "st.avi", "x.png"], "M11"),
     (["serve", "--port", "8752"], "M12"),
+    (["serve"], "M12"),
 ])
 def test_unported_surface_exits_1_with_one_line(argv, item, capsys):
     assert cli(*argv) == 1

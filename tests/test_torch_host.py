@@ -40,9 +40,10 @@ def test_import_needs_only_torch_numpy_scipy():
     """Importing the pipeline, every kernel module, the verified embed, the
     exactness harness, the fixtures, the GPU check tool, the metrics, the
     evaluation suite, the experimental kernels, every study module, the
-    CLI, steganalysis, the benchmark and the utilities succeeds with jax,
-    stegotpu, cryptography, PIL and cv2 blocked, and leaves no jax module
-    behind."""
+    CLI, steganalysis, the benchmark, the utilities and every module of the
+    parallel layer succeeds with jax, stegotpu, cryptography, PIL and cv2
+    blocked, and leaves no jax module behind; so does the spawn workers'
+    initializer."""
     code = """
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
@@ -61,6 +62,12 @@ import stegotpu_torch.ops._build
 import stegotpu_torch.cli, stegotpu_torch.steganalysis, stegotpu_torch.benchmark
 import stegotpu_torch.utils.logging, stegotpu_torch.utils.profiling
 import stegotpu_torch.studies
+import stegotpu_torch.parallel
+parallel = {m.name for m in pkgutil.iter_modules(stegotpu_torch.parallel.__path__)}
+assert parallel == {"mesh", "dist_pipeline", "local_procs", "distributed"}, parallel
+for name in sorted(parallel):
+    importlib.import_module("stegotpu_torch.parallel." + name)
+stegotpu_torch.parallel.local_procs._spawn_init()
 studies = [m.name for m in pkgutil.iter_modules(stegotpu_torch.studies.__path__)]
 assert {"extract_ablation", "ab_packed_payload", "dualchain_r5",
         "roofline_r4", "device_roofline", "emitpipe_r4"} <= set(studies), studies

@@ -190,16 +190,3 @@ def test_array_api_matches_jax():
                                             device="cpu")
         np.testing.assert_array_equal(got[:1000], bits)
         np.testing.assert_array_equal(j_bits(stego, JConfig())[:1000], bits)
-
-
-def test_unported_branches_raise(multibatch, tmp_path):
-    """The mesh branches are not ported yet; the verified branch is
-    (tests/test_torch_verified.py)."""
-    d, pub = multibatch
-    with pytest.raises(NotImplementedError, match="M11"):
-        embed_image_in_video(d / "cover.avi", d / "secret.png",
-                             tmp_path / "s.avi", pub, mesh=object(),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        extract_image_from_video(d / "cover.avi", None, mesh=object(),
-                                 device="cpu")

@@ -12,7 +12,7 @@ study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
 kernel's registers and spills (ptxas) and the opcode counts of K1-K4
 from cuobjdump -sass of the library (failing if the Hopper arithmetic of
 any of them holds a conversion instruction or a shared load), and runs
-fourteen phases:
+fifteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -66,7 +66,19 @@ fourteen phases:
      worker never initialises CUDA) and a 2-rank dist-extract over Gloo,
      each with the secret back pixel-identical and its host-clock time;
      embed --procs 2 and dist-embed, which need the native packet concat:
-     run where it is built, else checked for their one-line failure.
+     run where it is built, else checked for their one-line failure;
+15.  the serving path at 1920x1080 (stegotpu_torch.server, gui, tools), the
+     paths of K1, K2, K3 and K4 behind a daemon, the GUI's workers and the
+     soak and trace tools, all with no device named: the in-process server
+     answers /healthz, /capacity, /embed (K1), /inspect and /extract (K2;
+     pixel-identical, hash_ok), /steganalyze (delta 20), the verified
+     /embed (K3, residual 0) and the error codes 422, 400 and 404; the
+     daemon as users start it (`python -m stegotpu_torch.cli serve`),
+     with the host seconds to its first /healthz and of a first and a
+     second /embed; the GUI's embed and extract workers headless (procs 1
+     and 2); soak_kernels (20 configurations, three arms), soak_product
+     (3 draws) and profile_roundtrip (K4 events in its trace, in a
+     process of its own).
 
 Every phase prints; any failure exits non-zero. The line before the last
 is a JSON object with each kernel's route, source, launches on its path,
@@ -84,9 +96,13 @@ is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
 stegotpu_torch (which imports cryptography, Pillow and cv2 only in the
-file-to-file phases and the command line's, phases 13 and 14, which fail
-without them). Phase 14 starts two processes of the port's command line
-twice, on a free localhost port, and waits at most four minutes for them.
+file-to-file phases and those of the command line, the parallel layer and
+the serving path, phases 13-15, which fail without them, and scipy in
+phase 15's kernel soak). Phase 14 starts two processes of the port's command line
+twice, on a free localhost port, and waits at most four minutes for them;
+phase 15 starts one `serve` daemon on a free localhost port, waits at most
+three minutes for it to answer, and stops it with SIGINT (killing it if it
+outlives a minute more).
 """
 
 from __future__ import annotations
@@ -594,6 +610,7 @@ def main() -> int:
     queued.update(queued12)
     _cli()                                                    # phase 13
     _parallel(dev, rng, gpu)                                  # phase 14
+    _serving(gpu)                                             # phase 15
 
     stripe = ("stegotpu_torch/csrc/qim_stripe.cu", "stegotpu/ops/pallas_kernel.py")
     kron = ("stegotpu_torch/csrc/qim_kron.cu",
@@ -2051,6 +2068,316 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
         check(not left and (tmp / "par.avi").exists() == available(),
               f"segment files left behind: {left}")
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s host clock",
+          flush=True)
+
+
+class _GuiStandIn:
+    """The GUI's workers without a window: StegoApp's embed and extract
+    methods bound to an object that holds only the log queue (the workers
+    read everything else from the snapshot)."""
+
+    def __init__(self):
+        import queue
+
+        from stegotpu_torch.gui import StegoApp
+
+        self._q = queue.Queue()
+        self.embed = StegoApp._do_embed.__get__(self)
+        self.extract = StegoApp._do_extract.__get__(self)
+
+    def _log(self, msg: str, tag: str = "INFO") -> None:
+        self._q.put(("log", msg, tag))
+
+    def logs(self) -> list[tuple[str, str]]:
+        out = []
+        while not self._q.empty():
+            kind, *rest = self._q.get_nowait()
+            if kind == "log":
+                out.append(tuple(rest))
+        return out
+
+
+def _http(base: str, path: str, body: dict | None = None,
+          timeout: float = 120.0) -> tuple[int, dict, float]:
+    """(status, JSON body, host seconds) of a GET (body None) or a JSON
+    POST to the daemon at `base`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, out = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    return code, out, time.perf_counter() - t0
+
+
+def _tool(main, argv: list[str]) -> tuple[int, str]:
+    """A tool's main(argv) in this process: (exit code, stdout), its
+    output echoed under phase 15."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    for line in out.getvalue().splitlines():
+        print(f"phase 15 {main.__module__.rsplit('.', 1)[-1]}: {line}",
+              flush=True)
+    print(f"phase 15 {main.__module__} {' '.join(argv)}: exit {rc}, "
+          f"{time.perf_counter() - t0:.2f} s host clock", flush=True)
+    return rc, out.getvalue()
+
+
+def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
+    """Phase 15: the serving path at 1920x1080 (h x w) on the card, device
+    None everywhere (no CPU fallback), delta 20, num_ac 10.
+
+    The in-process server (make_server(port=0), in a thread) on a 12-frame
+    FFV1 fixture and a 640x480 noise secret (2.46 M payload bits, 8
+    frames): /healthz, /capacity (324,000 bits a frame), /embed (K1
+    launched), /inspect and /extract (K2 launched; the secret back
+    pixel-identical, hash_ok), /steganalyze (delta 20), the verified
+    /embed (K3 launched, residual 0) and its extract, then the error codes
+    (422 for delta 19, 400 for a missing field, 404 for an unknown route)
+    and /healthz again. Then `python -m stegotpu_torch.cli serve` as a
+    subprocess on a free port with the library built: host seconds until
+    /healthz answers, of a first and a second identical /embed, and its
+    exit on SIGINT. Then the GUI's workers headless (embed, extract with
+    procs 1 and procs 2), and the tools: soak_kernels (20 configurations,
+    seed 0, three arms), soak_product (3 draws, seed 0) and, as a
+    subprocess, profile_roundtrip (B=8, 3 iterations: 3 K4 launches and at
+    least 3 K4 events in its trace). cryptography, Pillow and cv2 are
+    required."""
+    import importlib
+    import os
+    import signal
+    import subprocess
+    import threading
+
+    import numpy as np
+
+    from stegotpu_torch import crypto, fixtures
+    from stegotpu_torch.config import StegoConfig
+    from stegotpu_torch.device import resolve_device
+    from stegotpu_torch.image import load_image_gray
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.server import make_server
+    from stegotpu_torch.tools import soak_kernels, soak_product
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cover, secret_png = tmp / "cover.avi", tmp / "secret.png"
+        fixtures.make_cover_video(cover, w, h, frames=12, kind="moving",
+                                  codec="FFV1")
+        fixtures.make_secret_image(secret_png, 640 * w // 1920,
+                                   480 * h // 1080, kind="noise", seed=15)
+        secret = load_image_gray(secret_png)
+        crypto.setup_receiver_keys(tmp / "k.pem", tmp / "p.pem")
+        keys = {"public_key": str(tmp / "p.pem"),
+                "private_key": str(tmp / "k.pem")}
+
+        srv = make_server(port=0)
+        check(srv.device.type == "cuda", f"server device {srv.device}")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            def post(path, body, want=200, counter=None):
+                _set_counts()
+                code, out, seconds = _http(base, path, body)
+                n = None if counter is None else getattr(sk, counter)
+                check(code == want, f"POST {path}: {code}, want {want}: {out}")
+                check(n is None or n > 0, f"POST {path} launched no kernel "
+                      f"({counter}={n})")
+                print(f"phase 15 server POST {path}: {code} in {seconds:.3f} "
+                      f"s host clock" + ("" if n is None else
+                                         f"; {counter}={n}"), flush=True)
+                return out
+
+            code, out, _ = _http(base, "/healthz")
+            check(code == 200 and out["ok"], f"/healthz: {code} {out}")
+            cap = post("/capacity", {"video": str(cover)})
+            check(cap["qim_bits_per_frame"] == (w // 8) * (h // 8) * 10
+                  and cap["frames"] == 12, f"/capacity: {cap}")
+            embed = {"cover": str(cover), "secret": str(secret_png),
+                     "output": str(tmp / "st"), **keys}
+            emb = post("/embed", embed, counter="EMBED_LAUNCHES")
+            check(emb["success"] and emb["residual_bits"] == 0
+                  and emb["frames_used"] == 12
+                  and emb["payload_bits"] > 8 * secret.size, f"/embed: {emb}")
+            ins = post("/inspect", {"stego": str(tmp / "st.avi")},
+                       counter="EXTRACT_LAUNCHES")
+            check((ins["payload_type"], ins["secret_height"],
+                   ins["secret_width"], ins["total_payload_bits"],
+                   ins["payload_frames"])
+                  == ("image", *secret.shape, emb["payload_bits"], 8),
+                  f"/inspect: {ins}")
+            ext = post("/extract", {"stego": str(tmp / "st.avi"),
+                                    "output": str(tmp / "x.png"), **keys},
+                       counter="EXTRACT_LAUNCHES")
+            check(ext["success"] and ext["hash_ok"]
+                  and np.array_equal(load_image_gray(tmp / "x.png"), secret),
+                  f"/extract: {ext}")
+            stz = post("/steganalyze", {"video": str(tmp / "st.avi")})
+            check(stz["detected"] and stz["estimated_delta"] == 20,
+                  f"/steganalyze: {stz}")
+            ver = post("/embed", {**embed, "output": str(tmp / "vst"),
+                                  "verified": True}, counter="CHECK_LAUNCHES")
+            check(ver["success"] and ver["residual_bits"] == 0,
+                  f"verified /embed: {ver}")
+            vext = post("/extract", {"stego": str(tmp / "vst.avi"),
+                                     "output": str(tmp / "vx.png"), **keys},
+                        counter="EXTRACT_LAUNCHES")
+            check(vext["hash_ok"] and np.array_equal(
+                load_image_gray(tmp / "vx.png"), secret),
+                f"verified /extract: {vext}")
+            post("/extract", {"stego": str(tmp / "st.avi"), "delta": 19,
+                              **keys}, want=422)
+            miss = post("/embed", {"secret": str(secret_png), **keys},
+                        want=400)
+            check("missing required field: 'cover'" in miss["error"],
+                  f"missing field: {miss}")
+            post("/nope", {}, want=404)
+            code, out, _ = _http(base, "/healthz")
+            check(code == 200, f"/healthz after the errors: {code}")
+            print(f"phase 15 server {w}x{h} ({gpu}): {emb['payload_bits']} "
+                  f"bits over {ins['payload_frames']} of {emb['frames_used']} "
+                  "frames, first-frame PSNR "
+                  f"{emb['first_frame_psnr_db']} dB; extract pixel-identical, "
+                  f"hash_ok; steganalyze delta {stz['estimated_delta']} "
+                  f"num_ac {stz.get('estimated_num_ac')} ratio "
+                  f"{stz['detection_ratio']}; verified residual 0 "
+                  f"(PSNR {ver.get('first_frame_psnr_db')} dB); 422/400/404; "
+                  "healthy", flush=True)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "the in-process server did not stop")
+
+        port = _free_port()
+        log_path = tmp / "serve.log"
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            daemon = subprocess.Popen(
+                [sys.executable, "-m", "stegotpu_torch.cli", "serve",
+                 "--port", str(port)], cwd=tmp, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            up = None
+            while time.perf_counter() - t0 < 180 and daemon.poll() is None:
+                try:
+                    if _http(base, "/healthz", timeout=5)[0] == 200:
+                        up = time.perf_counter() - t0
+                        break
+                except OSError:
+                    time.sleep(0.1)
+            check(up is not None, f"serve did not answer /healthz (exit "
+                  f"{daemon.poll()}): {log_path.read_text()[-2000:]}")
+            body = {**embed, "output": str(tmp / "dst")}
+            firsts = []
+            for _ in range(2):
+                code, out, seconds = _http(base, "/embed", body)
+                check(code == 200 and out["success"],
+                      f"serve /embed: {code} {out}")
+                firsts.append(seconds)
+            daemon.send_signal(signal.SIGINT)
+            rc = daemon.wait(timeout=60)
+        finally:
+            if daemon.poll() is None:
+                daemon.kill()
+                daemon.wait()
+        for line in log_path.read_text().splitlines():
+            print(f"phase 15 serve: {line}", flush=True)
+        check(rc == 0, f"serve exited {rc} on SIGINT")
+        print(f"phase 15 serve subprocess ({gpu}): /healthz after {up:.2f} s, "
+              f"first /embed {firsts[0]:.3f} s, second {firsts[1]:.3f} s, "
+              "exit 0 on SIGINT; host clock, a finding", flush=True)
+
+        gui = _GuiStandIn()
+        snap = {"paths": {"cover": str(cover), "secret": str(secret_png),
+                          "stego_out": str(tmp / "gui.avi"),
+                          "stego_in": str(tmp / "gui.avi"),
+                          "image_out": str(tmp / "gui.png"),
+                          "pub_key": str(tmp / "p.pem"),
+                          "priv_key": str(tmp / "k.pem")},
+                "config": StegoConfig(), "procs": 1, "auto_recover": False,
+                "device": resolve_device()}
+        _set_counts()
+        t0 = time.perf_counter()
+        gui.embed(snap)
+        k1 = sk.EMBED_LAUNCHES
+        logs = gui.logs()
+        check(any(m.startswith("embedded ") for m, _ in logs)
+              and not any(tag == "ERR" for _, tag in logs),
+              f"GUI embed: {logs}")
+        for procs in (1, 2):
+            gui.extract({**snap, "procs": procs})
+            logs = gui.logs()
+            check(("SHA3-256 integrity: OK", "OK") in logs
+                  and np.array_equal(load_image_gray(tmp / "gui.png"), secret),
+                  f"GUI extract procs {procs}: {logs}")
+            (tmp / "gui.png").unlink()
+        try:
+            importlib.import_module("tkinter")
+            tk = "importable"
+        except ImportError as e:
+            tk = f"not importable ({e})"
+        print(f"phase 15 GUI workers {w}x{h} on {snap['device']}: embed, "
+              "extract procs 1 and procs 2 (thread): SHA3-256 integrity OK, "
+              f"pixel-identical; EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES="
+              f"{sk.EXTRACT_LAUNCHES} (both extracts); "
+              f"{time.perf_counter() - t0:.2f} s host clock; tkinter {tk}",
+              flush=True)
+        check(k1 > 0 and sk.EXTRACT_LAUNCHES > 0,
+              f"GUI workers launched EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES="
+              f"{sk.EXTRACT_LAUNCHES}")
+
+        _set_counts()
+        rc, out = _tool(soak_kernels.main, ["20", "0"])
+        check(rc == 0 and out.strip().splitlines()[-1].endswith(
+            "20 configs, 0 failures (arms on cuda: oracle 0, xla 0, "
+            "pallas 0, plain 0)"), f"soak_kernels: exit {rc}")
+        check(sk.EMBED_LAUNCHES > 0 and sk.EXTRACT_LAUNCHES > 0,
+              f"soak_kernels launched EMBED_LAUNCHES={sk.EMBED_LAUNCHES} "
+              f"EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}")
+        print(f"phase 15 soak_kernels launches: EMBED_LAUNCHES="
+              f"{sk.EMBED_LAUNCHES} EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}",
+              flush=True)
+        _set_counts()
+        rc, _ = _tool(soak_product.main, ["3", "0"])
+        check(rc == 0, f"soak_product: exit {rc}")
+        print("phase 15 soak_product launches: " + " ".join(
+            f"{k}={v}" for k, v in _counts().items() if v), flush=True)
+        # the trace tool as users run it, in a process of its own: a trace
+        # taken late in a long process that has traced before can lose
+        # device events (PERF.md, the serving path's finding)
+        argv = ["--batch", "8", "--iters", "3", "--out", str(tmp / "trace")]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "stegotpu_torch.tools.profile_roundtrip",
+             *argv], cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=300)
+        for line in (run.stdout + run.stderr).splitlines():
+            print(f"phase 15 profile_roundtrip: {line}", flush=True)
+        check(run.returncode == 0, f"profile_roundtrip: exit {run.returncode}")
+        line = json.loads(run.stdout.strip().splitlines()[-1])
+        check(line["k4_launches"] == 3 and line["k4_events"] >= 3,
+              f"profile_roundtrip: {line}")
+        print(f"phase 15 profile_roundtrip {' '.join(argv[:-2])}: exit 0, "
+              f"{line['k4_launches']} K4 launches traced, {line['k4_events']} "
+              f"K4 events in the trace; {time.perf_counter() - t0:.2f} s host "
+              "clock, the process start included", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s host clock",
           flush=True)
 
 

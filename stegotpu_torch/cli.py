@@ -1,6 +1,6 @@
 """Command-line interface of the port: embed / extract (+ batch, dist and
 segment variants) / genkey / evaluate / capacity / inspect / steganalyze /
-fixtures / selftest / concat / bench.
+fixtures / selftest / serve / concat / bench.
 
 Counterpart of ``stegotpu/cli.py``, with the same subcommands, flags,
 messages and exit codes, run through ``stegotpu_torch``: the QIM kernels
@@ -16,8 +16,8 @@ run the kernels' plain versions (the tests do). The global
 ``--coordinator``, ``--num-processes`` and ``--process-id``. ``selftest``
 re-proves the kernels' exactness on the card
 (``ops/exactness.quick_exactness_check``) where the JAX CLI does so on a
-TPU. What the port does not have yet exits 1 with one line naming its
-ROADMAP item: ``serve`` (M12, the server).
+TPU. ``serve`` runs the JSON-over-HTTP daemon (``server.py``) on the
+global ``--device``.
 """
 
 from __future__ import annotations
@@ -28,19 +28,6 @@ import sys
 from pathlib import Path
 
 from stegotpu_torch.config import StegoConfig
-
-NOT_PORTED = {
-    "serve": ("serve", "M12, the server"),
-}
-
-
-def _not_ported(key: str) -> int:
-    what, item = NOT_PORTED[key]
-    print(f"error: {what} is not ported to stegotpu_torch yet (ROADMAP.md "
-          f"queue 1, {item}); use the JAX package's CLI, python -m "
-          "stegotpu.cli", file=sys.stderr)
-    return 1
-
 
 def _config_from_args(args) -> StegoConfig:
     return StegoConfig(delta=args.delta, num_ac_coeffs=args.coeffs,
@@ -722,6 +709,13 @@ def cmd_bench(args) -> int:
         return 1
 
 
+def cmd_serve(args) -> int:
+    from stegotpu_torch.server import serve
+
+    serve(args.host, args.port, args.device)
+    return 0
+
+
 def cmd_concat(args) -> int:
     """Stitch same-codec segments by packet stream-copy (no re-encode)."""
     from stegotpu_torch.native.videoio import (available, build_error,
@@ -1010,10 +1004,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_dist_flags(dx)
     dx.set_defaults(fn=cmd_dist_extract)
 
-    sv = sub.add_parser("serve", help="JSON-over-HTTP daemon (not ported yet)",
-                        prefix_chars="\0")
-    sv.add_argument("rest", nargs="*", help=argparse.SUPPRESS)
-    sv.set_defaults(fn=lambda args: _not_ported("serve"))
+    sv = sub.add_parser(
+        "serve",
+        help="warm-process JSON-over-HTTP daemon (localhost pipelines)")
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default localhost only — the API "
+                         "reads/writes server-side paths, unauthenticated)")
+    sv.add_argument("--port", type=int, default=8752)
+    sv.set_defaults(fn=cmd_serve)
 
     ed = sub.add_parser("embed-data",
                         help="embed an arbitrary file's bytes (extension mode)")

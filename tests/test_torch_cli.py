@@ -6,9 +6,9 @@ extract -> evaluate -> capacity, wrong parameters, embed-batch and
 extract-batch with --jobs, the JSON outputs, --auto-params recovery,
 segments with --payload-state and concat, embed-data, selftest. Beside
 them: ``inspect`` on the wire goldens gives the JAX package's
-``inspect_stego_header`` dict, what the port lacks exits 1 with one line
-naming its ROADMAP item, a run that names no device needs the card, and
-the CLI imports with jax and stegotpu blocked.
+``inspect_stego_header`` dict, a run that names no device needs the
+card, and the CLI imports with jax and stegotpu blocked. ``serve`` is
+tested with the server (test_torch_server.py).
 """
 
 import json
@@ -248,19 +248,6 @@ def test_cli_segments_embed_data_and_selftest(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "SELFTEST PASSED" in out and "device cpu" in out
     assert "kernel exactness" not in out  # the card's check: CUDA only
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["serve", "--port", "8752"], "M12"),
-    (["serve"], "M12"),
-])
-def test_unported_surface_exits_1_with_one_line(argv, item, capsys):
-    assert cli(*argv) == 1
-    out = capsys.readouterr()
-    lines = out.err.strip().splitlines()
-    assert out.out == "" and len(lines) == 1
-    assert lines[0].startswith("error: ") and item in lines[0]
-    assert "not ported" in lines[0] and "Traceback" not in out.err
 
 
 def test_cli_without_a_device_needs_the_card(tmp_path, monkeypatch, capsys):

@@ -40,10 +40,10 @@ def test_import_needs_only_torch_numpy_scipy():
     """Importing the pipeline, every kernel module, the verified embed, the
     exactness harness, the fixtures, the GPU check tool, the metrics, the
     evaluation suite, the experimental kernels, every study module, the
-    CLI, steganalysis, the benchmark, the utilities and every module of the
-    parallel layer succeeds with jax, stegotpu, cryptography, PIL and cv2
-    blocked, and leaves no jax module behind; so does the spawn workers'
-    initializer."""
+    CLI, steganalysis, the benchmark, the utilities, every module of the
+    parallel layer, the server, the GUI and every module of the tools
+    succeeds with jax, stegotpu, cryptography, PIL and cv2 blocked, and
+    leaves no jax module behind; so does the spawn workers' initializer."""
     code = """
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "stegotpu", "cryptography", "PIL", "cv2")
@@ -62,7 +62,13 @@ import stegotpu_torch.ops._build
 import stegotpu_torch.cli, stegotpu_torch.steganalysis, stegotpu_torch.benchmark
 import stegotpu_torch.utils.logging, stegotpu_torch.utils.profiling
 import stegotpu_torch.studies
-import stegotpu_torch.parallel
+import stegotpu_torch.parallel, stegotpu_torch.server, stegotpu_torch.gui
+import stegotpu_torch.tools
+tools = {m.name for m in pkgutil.iter_modules(stegotpu_torch.tools.__path__)}
+assert tools == {"reference_model", "soak_kernels", "soak_product",
+                 "profile_roundtrip"}, tools
+for name in sorted(tools):
+    importlib.import_module("stegotpu_torch.tools." + name)
 parallel = {m.name for m in pkgutil.iter_modules(stegotpu_torch.parallel.__path__)}
 assert parallel == {"mesh", "dist_pipeline", "local_procs", "distributed"}, parallel
 for name in sorted(parallel):

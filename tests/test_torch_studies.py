@@ -567,6 +567,33 @@ def test_study_main_exits_nonzero_without_cuda(mod, monkeypatch, capsys):
     assert "no CUDA device" in out.err
 
 
+def test_serve_warmup_exits_nonzero_without_cuda(monkeypatch, capsys):
+    from stegotpu_torch.studies import serve_warmup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert serve_warmup.main([]) != 0
+    out = capsys.readouterr()
+    assert out.out == ""
+    assert "no CUDA device" in out.err
+
+
+def test_serve_warmup_splits_each_request(tmp_path):
+    """Two identical /embed calls at a small size on the CPU: each row's
+    stages add up to its total, and the second imports nothing."""
+    from stegotpu_torch.studies import serve_warmup
+
+    body = serve_warmup.make_request(tmp_path, 48, 64)
+    rows = serve_warmup.split_requests(body, "cpu", 2)
+    assert [r["request"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["success"]
+        assert set(r["stages_s"]) == {
+            "imports", "video_probe", "key", "decode_wait",
+            "device_dispatch", "device_readback", "encode", "other"}
+        assert sum(r["stages_s"].values()) == pytest.approx(r["total_s"])
+    assert rows[1]["imported"] == []
+
+
 def test_study_bounds_count_each_byte_once():
     from stegotpu_torch.studies import bounds
 

@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
 study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
-kernel's registers and spills (ptxas) and the opcode counts of K1-K4
+kernel's registers and spills (ptxas) and the opcode counts of K1-K6
 from cuobjdump -sass of the library (failing if the Hopper arithmetic of
 any of them holds a conversion instruction or a shared load), and runs
 fifteen phases:
@@ -19,13 +19,16 @@ fifteen phases:
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
 4.   every kernel's time and its plain version's, with CUDA events
-     (K1-K8), and the share of their bound that K1-K4 reach;
+     (K1-K8), and the share of their bound that K1-K6 reach;
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
      against their plain versions;
-7.   the zero-tolerance identities kernel against kernel, then the
-     exactness harness (ops/exactness.py, the path of K4 and K5);
+7.   the zero-tolerance identities kernel against kernel at delta 20 and
+     2^-11 (K3, K4, K6 stego == K1's; K4 bits == K2's; K5 == K2 lane for
+     lane; K6 rows == K5 of its stego; K9 full == K5), also on odd shapes
+     at delta 0 and -4, then the exactness harness (ops/exactness.py, the
+     path of K4 and K5);
 8.   the TF32 sentinel: a row fails with TF32 in the oracle, and passes
      without;
 9.   the verified embed at full width (the path of K3), on arrays and file
@@ -161,7 +164,7 @@ def _ptxas_summary(log: str) -> str:
     and study kernels, the instantiation of the default num_ac=10 (rn=2,
     or the only rn a kernel has) and the largest over rn=1..8, with one
     entry per K9 variant ('ablation_no_qim<2>:...'), per K13 ring depth,
-    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1-K4
+    capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1-K6
     arithmetic and register cap ('extract_packed<2>' the Hopper
     arithmetic, 'embed_minb8<2>' K1's with __launch_bounds__(128, 8) at
     rn <= 2, 'embed<3>' without the cap above, 'embed_small_delta_minb8<2>'
@@ -186,7 +189,7 @@ def _ptxas_summary(log: str) -> str:
                 name += "_uncapped"
         elif kind == "ablation":  # <RN, V>
             name = f"ablation_{ABLATIONS[int(args[1])]}"
-        elif len(args) >= 2:  # K1, K3, K4 <RN, Arith, MINB>, K2 <RN, Arith>
+        elif len(args) >= 2:  # K1/K3/K4/K6 <RN, Arith, MINB>, K2/K5 <RN, Arith>
             name = kind + ("_small_delta" if args[1].endswith("SmallDelta")
                            else "")
             if args[2:] and args[2] != "1":
@@ -207,19 +210,20 @@ def _ptxas_summary(log: str) -> str:
     return " ".join(out)
 
 
-# conversion and shared-memory opcodes that the Hopper arithmetic of K1-K4
+# conversion and shared-memory opcodes that the Hopper arithmetic of K1-K6
 # (ArithHopper, delta >= 2^-10) leaves out of their SASS
 NO_SLOW_PIPE = ("I2F", "I2FP", "F2I", "FRND", "LDS")
-# what is left, and why: K2's and K4's packed layout divides the block row
-# by the stripe's block rows (group_row in csrc/qim_common.cuh), an integer
-# division whose reciprocal takes one I2F and one F2I a thread, outside
-# the block arithmetic
-SLOW_PIPE_LEFT = {"qim_extract_packed_kernel": {"I2F": 1, "F2I": 1},
-                  "qim_roundtrip_packed_kernel": {"I2F": 1, "F2I": 1}}
+# what is left, and why: the packed and unpacked layouts of K2, K4, K5 and
+# K6 divide the block row by the stripe's block rows (group_row in
+# csrc/qim_common.cuh), an integer division whose reciprocal takes one I2F
+# and one F2I a thread, outside the block arithmetic
+SLOW_PIPE_LEFT = {k: {"I2F": 1, "F2I": 1} for k in (
+    "qim_extract_packed_kernel", "qim_roundtrip_packed_kernel",
+    "qim_extract_rows_kernel", "qim_roundtrip_rows_kernel")}
 
 
 def _sass_counts(lib) -> None:
-    """Print the opcode counts of K1-K4 (rn=2) from cuobjdump -sass of the
+    """Print the opcode counts of K1-K6 (rn=2) from cuobjdump -sass of the
     built library (studies/sass.py), and fail unless each has an
     ArithHopper build, or if one of those holds a conversion instruction
     or a shared load beyond SLOW_PIPE_LEFT."""
@@ -241,7 +245,7 @@ def _sass_counts(lib) -> None:
         over = {k: r[k] for k in NO_SLOW_PIPE if r[k] > left.get(k, 0)}
         if over:
             bad[r["kernel"]] = over
-    check(not bad, f"K1-K4 ArithHopper builds hold slow-pipe instructions: {bad}")
+    check(not bad, f"K1-K6 ArithHopper builds hold slow-pipe instructions: {bad}")
 
 
 def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
@@ -564,7 +568,8 @@ def main() -> int:
     from stegotpu_torch.studies import bounds
 
     for k, kn in (("embed", "K1"), ("extract_packed", "K2"),
-                  ("embed_check", "K3"), ("roundtrip_packed", "K4")):
+                  ("embed_check", "K3"), ("roundtrip_packed", "K4"),
+                  ("extract_rows", "K5"), ("roundtrip_rows", "K6")):
         bound, by = bounds.bound_ms(*bounds.work(k, 8, 1080, 1920, NUM_AC,
                                                  sk.pick_stripe(1080)))
         print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
@@ -817,42 +822,93 @@ def _fused_vs_plain(dev, rng) -> dict[str, int]:
     return errs
 
 
+# phase 7's odd shapes (B, H, W, num_ac, fraction of the batch's slots
+# the payload fills): W % 16 == 8, payloads ending mid-frame, num_ac 1, 7,
+# 10, 30 and 63 (rn 1-8); those of tests/test_torch_cuda.py's
+# test_zero_tolerance_identities and of phase 12
+IDENTITY_ODD = [(3, 40, 136, 1, 0.47), (3, 48, 1048, 63, 0.53),
+                (3, 48, 1048, 10, 0.7), (4, 96, 1360, 7, 0.3),
+                (2, 64, 64, 63, 0.5), (2, 768, 1360, 30, 1.0)]
+
+
 def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
     """Phase 7: the zero-tolerance identities kernel against kernel, then
     the exactness harness (ops/exactness.py), the path that runs K4 and K5.
-    Returns the K4 and K5 launches of the harness's run."""
+
+    K3's, K4's and K6's stego and bits per frame are K1's, K4's packed
+    bits K2's reading of K4's stego, K6's rows K5's reading of K6's stego,
+    K5 K2 lane for lane and K9 full K5 byte for byte (on the cover and on
+    K1's stego), and K3's count a count from K2 on K3's stego: at 1920x1080
+    and 1360x768, B=8, both covers, at delta 20 (K1-K6 in ArithHopper) and
+    2^-11 (ArithHopperSmallDelta; K9 keeps ArithCvt at both, the extract
+    side's witness across the spellings), then on IDENTITY_ODD at delta
+    20, 2^-11, 0 and -4. Returns the K4 and K5 launches of the harness's
+    run."""
     import numpy as np
     import torch
 
     from stegotpu_torch.ops import exactness
     from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import extract_ablation as ea
 
     spread = torch.arange(8, dtype=torch.uint8, device=dev)
-    for (h, w) in ((1080, 1920), (768, 1360)):
-        for cover in ("mid", "uniform"):
-            frames, payload, total = _covers(dev, rng, 8, h, w, cover)
-            args = (frames, payload, total, DELTA, NUM_AC)
-            s1, _ = sk.embed_frames(*args)
-            s3, _, err3 = sk.embed_and_check_frames(*args)
-            s4, _, p4 = sk.embed_and_extract_frames_packed(*args)
-            check(torch.equal(s3, s1), f"K3 stego != K1 stego at {h}x{w}")
-            check(torch.equal(s4, s1), f"K4 stego != K1 stego at {h}x{w}")
-            check(torch.equal(p4, sk.extract_frames_packed(s4, DELTA, NUM_AC)),
-                  f"K4 bits != K2 of K4's stego at {h}x{w}")
-            for x in (frames, s1):
-                r5 = sk.extract_frames_rows(x, DELTA, NUM_AC)
-                p2 = sk.extract_frames_packed(x, DELTA, NUM_AC)
-                check(torch.equal(r5, ((p2[..., None] >> spread) & 1)
-                                  .reshape(r5.shape)),
-                      f"K5 lanes != K2 bytes at {h}x{w}")
-            count = sk.count_wrong_bits(sk.extract_frames(s3, DELTA, NUM_AC),
-                                        payload, total)
-            check(torch.equal(err3, count),
-                  f"K3 count {err3.tolist()} != K2 count {count.tolist()}")
-            print(f"phase 7 identities {h}x{w} B=8 {cover}: K3 stego == K4 "
-                  "stego == K1 stego; K4 bits == K2(K4 stego) byte for byte; "
-                  "K5 == K2 lane for lane; K3 count == K2 count "
-                  f"({int(count.sum())})", flush=True)
+
+    def identities(frames, payload, total, delta, num_ac, at: str) -> int:
+        """Every identity on one input; returns K3's count of wrong bits."""
+        args = (frames, payload, total, delta, num_ac)
+        s1, bpf1 = sk.embed_frames(*args)
+        s3, bpf3, err3 = sk.embed_and_check_frames(*args)
+        s4, bpf4, p4 = sk.embed_and_extract_frames_packed(*args)
+        s6, bpf6, r6 = sk.embed_and_extract_frames_rows(*args)
+        for k, s_k, bpf_k in (("K3", s3, bpf3), ("K4", s4, bpf4),
+                              ("K6", s6, bpf6)):
+            check(torch.equal(s_k, s1), f"{k} stego != K1 stego at {at}")
+            check(torch.equal(bpf_k, bpf1), f"{k} bpf != K1 bpf at {at}")
+        check(torch.equal(p4, sk.extract_frames_packed(s4, delta, num_ac)),
+              f"K4 bits != K2 of K4's stego at {at}")
+        check(torch.equal(r6, sk.extract_frames_rows(s6, delta, num_ac)),
+              f"K6 rows != K5 of K6's stego at {at}")
+        for x in (frames, s1):
+            r5 = sk.extract_frames_rows(x, delta, num_ac)
+            p2 = sk.extract_frames_packed(x, delta, num_ac)
+            check(torch.equal(r5, ((p2[..., None] >> spread) & 1)
+                              .reshape(r5.shape)),
+                  f"K5 lanes != K2 bytes at {at}")
+            check(torch.equal(ea.ablate(x, delta, num_ac, "full"), r5),
+                  f"K9 full != K5 at {at}")
+        count = sk.count_wrong_bits(sk.extract_frames(s3, delta, num_ac),
+                                    payload, total)
+        check(torch.equal(err3, count),
+              f"K3 count {err3.tolist()} != K2 count {count.tolist()} at {at}")
+        if delta <= 0:
+            check(torch.equal(s1, frames) and not r6.any(),
+                  f"delta {delta}: not a passthrough at {at}")
+        return int(count.sum())
+
+    for delta in (DELTA, 2.0**-11):
+        for (h, w) in ((1080, 1920), (768, 1360)):
+            for cover in ("mid", "uniform"):
+                frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+                n = identities(frames, payload, total, delta, NUM_AC,
+                               f"{h}x{w} {cover} delta {delta}")
+                print(f"phase 7 identities {h}x{w} B=8 {cover} delta "
+                      f"{delta}: K3, K4, K6 stego and bpf == K1's; K4 bits "
+                      "== K2(K4 stego); K6 rows == K5(K6 stego); K5 == K2 "
+                      "lane for lane; K9 full == K5; K3 count == K2 count "
+                      f"({n})", flush=True)
+    for b, h, w, num_ac, frac in IDENTITY_ODD:
+        cap = (h // 8) * (w // 8) * num_ac
+        frames = torch.from_numpy(
+            rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
+        payload = torch.from_numpy(
+            rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+        total = int(frac * b * cap) - 5
+        for delta in (DELTA, 2.0**-11, 0.0, -4.0):
+            identities(frames, payload, total, delta, num_ac,
+                       f"B={b} {h}x{w} num_ac={num_ac} delta {delta}")
+        print(f"phase 7 identities odd shape B={b} {h}x{w} num_ac={num_ac} "
+              f"(W%16={w % 16}, payload ends at {total} of {b * cap} bits): "
+              "every identity above at delta 20, 2^-11, 0, -4", flush=True)
 
     _set_counts()
     rows = [exactness.quick_exactness_check(device=dev)]

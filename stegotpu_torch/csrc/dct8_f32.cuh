@@ -9,7 +9,7 @@
 // with indices fixed at compile time (the unrolled transforms of
 // qim_common.cuh) gets each FFMA's matrix operand with no shared-memory
 // copy, no barrier and no register to hold it. nvcc folds the values into
-// the FFMAs as immediates (K1-K4's SASS, studies/sass.py FFMA_imm).
+// the FFMAs as immediates (K1-K6's SASS, studies/sass.py FFMA_imm).
 
 #pragma once
 

@@ -18,7 +18,7 @@
 // conversion pipe, which retires 16 results a clock an SM against FADD's
 // 128 (CUDA C++ Programming Guide, throughput table, compute capability
 // 9.0). tests/test_torch_exact_arith.py proves each step on the CPU; the
-// zero-tolerance identities K6 == K1 and K10 == K1 (stego), K5 == K2, and
+// zero-tolerance identities K10 == K1 (stego), K9 `full` == K5, and
 // K11 == K13 == K4 hold the two spellings to each other on the card. The
 // matrix operand is a template
 // parameter too: `const float*` into a shared-memory copy, or ConstDct, the
@@ -69,15 +69,15 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
 // kBitsFirst: the embed loads the block's payload bits (every slot up to
 //   num_ac, in bounds whatever rem is) before the first slot; else each
 //   slot loads its bit inside its own branch, one round trip after another.
-struct ArithCvt {  // K5, K6 and K9-K13: the conversion instructions
+struct ArithCvt {  // K9-K13: the conversion instructions
   static constexpr bool kAddConvert = false, kAddRound = false, kRederive = false,
                         kBitsFirst = false;
 };
-struct ArithHopper {  // K1-K4 at delta >= 2^-10
+struct ArithHopper {  // K1-K6 at delta >= 2^-10
   static constexpr bool kAddConvert = true, kAddRound = true, kRederive = true,
                         kBitsFirst = true;
 };
-struct ArithHopperSmallDelta {  // K1-K4 at delta < 2^-10
+struct ArithHopperSmallDelta {  // K1-K6 at delta < 2^-10
   static constexpr bool kAddConvert = true, kAddRound = false, kRederive = true,
                         kBitsFirst = true;
 };
@@ -342,7 +342,8 @@ __device__ __forceinline__ void write_packed(uint8_t* __restrict__ packed,
 }
 
 // K5's layout: lanes 8*bx .. 8*bx+7 of row jg*rows_pad + i*RN + g of
-// (B, (H/stripe)*rows_pad, W) hold bits 0..7 of byte[g], one u8 each.
+// (B, (H/stripe)*rows_pad, W) hold bits 0..7 of byte[g], one u8 each
+// (K5, K6 and K9's row variants).
 template <int RN>
 __device__ __forceinline__ void write_rows(uint8_t* __restrict__ rows,
                                            const uint32_t (&byte)[RN], int f,
@@ -353,13 +354,12 @@ __device__ __forceinline__ void write_rows(uint8_t* __restrict__ rows,
                    static_cast<size_t>(bx) * 8;
 #pragma unroll
   for (int g = 0; g < RN; ++g) {
-    // spread bit s of the byte to the low bit of byte lane s
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      lo |= ((byte[g] >> s) & 1u) << (8 * s);
-      hi |= ((byte[g] >> (s + 4)) & 1u) << (8 * s);
-    }
+    // spread bit s of the byte (< 256) to the low bit of byte lane s: a
+    // nibble times 1 + 2^7 + 2^14 + 2^21 holds its bit s at bit s + 7k for
+    // each k < 4; those 16 positions differ (no carry), and bit 8k is bit k
+    // (tests/test_torch_exact_arith.py, every byte)
+    const uint32_t lo = ((byte[g] & 0xFu) * 0x00204081u) & 0x01010101u;
+    const uint32_t hi = ((byte[g] >> 4) * 0x00204081u) & 0x01010101u;
     *reinterpret_cast<uint2*>(group + static_cast<size_t>(i * RN + g) * w) =
         make_uint2(lo, hi);
   }

@@ -47,34 +47,40 @@
 // an approximate divide and flushes denormals, which moves round(y/delta)
 // at the rounding boundary.
 //
-// K1 and K2, the main path's kernels, and K3 and K4, the verified
-// embed's and the bench's, are redesigned for Hopper; K5 and K6 keep the
-// first design. What held them back was instruction throughput, not
-// bytes: every u8 pixel became a float on the conversion pipe (16 results
-// a clock an SM against FADD's 128), every slot rounded with FRND and
-// converted back, every FMA took its matrix operand from shared memory
-// behind a barrier, each slot loaded its payload byte inside its own
-// branch, and the wrappers added five small device ops for the bits per
-// frame. Now (the ArithHopper spelling of qim_common.cuh, the same bytes):
-// the matrix comes from the constant bank (dct8_f32.cuh), conversions and
-// rounding are FADDs and PRMTs, the payload bits load before the first
-// slot (K3 holds them in registers for its count too), each kernel writes
-// the bits per frame itself (one launch is the whole call; K3's counts
-// are zeroed by one memset before it), and at num_ac <= 15 a register cap
-// (__launch_bounds__ MINB) lets more of K1's, K3's and K4's CTAs fit an SM.
+// All six kernels are designed for Hopper: K1 and K2, the main path's
+// kernels, K3 and K4, the verified embed's and the bench's, and K5 and
+// K6, the exactness harness's unpacked extract and the fused unpacked
+// round trip; only the study kernels K9-K13 keep the first design's
+// conversion spelling. What held the first design back was
+// instruction throughput, not bytes: every u8 pixel became a float on the
+// conversion pipe (16 results a clock an SM against FADD's 128), every
+// slot rounded with FRND and converted back, every FMA took its matrix
+// operand from shared memory behind a barrier, each slot loaded its
+// payload byte inside its own branch, and the wrappers added five small
+// device ops for the bits per frame. Now (the ArithHopper spelling of
+// qim_common.cuh, the same bytes): the matrix comes from the constant bank
+// (dct8_f32.cuh), conversions and rounding are FADDs and PRMTs, the
+// payload bits load before the first slot (K3 holds them in registers for
+// its count too), each embedding kernel writes the bits per frame itself
+// (one launch is the whole call; K3's counts are zeroed by one memset
+// before it), and at num_ac <= 15 a register cap (__launch_bounds__ MINB)
+// lets more of K1's, K3's, K4's and K6's CTAs fit an SM. K5 and K6 write
+// 8x K2's and K4's extract bytes (one u8 a lane): their bits spread to
+// lanes by two integer multiplies a slot row (write_rows).
 
 #include "qim_common.cuh"
 
 namespace {
 
-// The CTAs per SM that K1's, K3's and K4's builds ask ptxas to fit at
-// rn <= 2 (1: no cap). 8 gives each 64 registers and no spill. At 1080p
+// The CTAs per SM that K1's, K3's, K4's and K6's builds ask ptxas to fit
+// at rn <= 2 (1: no cap). 8 gives each 64 registers and no spill. At 1080p
 // B=8 it takes 23% less time than no cap in K1 (134 registers; 9 spills
 // 16 B, 10 spills 48 B and is slower), 11% less in K3 (152) and 13% less
 // in K4 (136). studies/stripe_cap.py rebuilds this source with
-// -DSTEGOTPU_K1_MINB=<n> (K3_MINB, K4_MINB) for the A/B. K2 needs only 40
-// registers and has no cap: at 16 CTAs (32 registers) it spills 24 B and
-// is slower.
+// -DSTEGOTPU_K1_MINB=<n> (K3_MINB, K4_MINB, K6_MINB) for the A/B. In K6
+// the cap takes 14% less time than none (138 registers); 9 CTAs spill
+// 24 B and are slower. K2 and K5 need only 40 registers and have no cap:
+// at 16 CTAs (32 registers) K2 spills 24 B and is slower.
 #ifndef STEGOTPU_K1_MINB
 #define STEGOTPU_K1_MINB 8
 #endif
@@ -83,6 +89,9 @@ namespace {
 #endif
 #ifndef STEGOTPU_K4_MINB
 #define STEGOTPU_K4_MINB 8
+#endif
+#ifndef STEGOTPU_K6_MINB
+#define STEGOTPU_K6_MINB 8
 #endif
 
 // A kernel's CTAs per SM: its cap at rn <= 2, none above.
@@ -105,7 +114,7 @@ __device__ __forceinline__ void frame_bits(int* __restrict__ bpf, int f,
     bpf[f] = static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
 }
 
-// K1-K4 take the Hopper arithmetic (qim_common.cuh): the matrix from the
+// K1-K6 take the Hopper arithmetic (qim_common.cuh): the matrix from the
 // constant bank, no barrier, and at delta >= 2^-10 no conversion
 // instruction (ArithHopper; the launch takes ArithHopperSmallDelta, with
 // rintf/floorf, below it). MINB is the CTAs per SM that __launch_bounds__
@@ -157,15 +166,18 @@ qim_extract_packed_kernel(const uint8_t* __restrict__ frames,
   write_packed<RN>(packed, byte, f, by, bx, h, bw, stripe_blocks, rows_pad);
 }
 
-template <int RN>
+// K5 is K2 with one u8 a lane: the same decode, and 8x the output bytes.
+// Its bound on the H100 is its bytes (21 MB at 1080p B=8, 6.27 us at 3.35
+// TB/s), but what holds it back is instruction issue, as in K2: so it
+// takes K2's Hopper arithmetic and constant-bank matrix, and spreads each
+// slot row to its 8 lanes with two multiplies (write_rows). No register
+// cap: it needs K2's 40 registers.
+template <int RN, class Arith>
 __global__ void __launch_bounds__(kThreads)
 qim_extract_rows_kernel(const uint8_t* __restrict__ frames,
-                        uint8_t* __restrict__ rows,
-                        const float* __restrict__ dct, int h, int w,
+                        uint8_t* __restrict__ rows, int h, int w,
                         int stripe_blocks, int rows_pad, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
-
+  const ConstDct m{};
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bw) return;
@@ -175,7 +187,7 @@ qim_extract_rows_kernel(const uint8_t* __restrict__ frames,
   uint2 raw[8];
   load_rows(frames + block_offset(f, by, bx, h, w), w, raw);
   uint32_t byte[RN];
-  slot_bits<RN>(raw, m, delta, byte);
+  slot_bits<RN, Arith>(raw, m, delta, byte);
   write_rows<RN>(rows, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
 }
 
@@ -211,36 +223,41 @@ qim_roundtrip_packed_kernel(const uint8_t* __restrict__ frames,
   write_packed<RN>(packed, byte, f, by, bx, h, bw, stripe_blocks, rows_pad);
 }
 
-template <int RN>
-__global__ void __launch_bounds__(kThreads)
+// K6 is K4 with K5's output: K1's embed, then K5's decode of the
+// quantized stego still in registers. Its bound on the H100 is its bytes
+// (40 MB at 1080p B=8, 12.00 us), but what holds it back is instruction
+// issue and occupancy, as in K4: so it takes K4's arithmetic and its
+// register cap (STEGOTPU_K6_MINB), and writes the bits per frame itself,
+// so a call is one launch.
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 qim_roundtrip_rows_kernel(const uint8_t* __restrict__ frames,
                           const uint8_t* __restrict__ payload,
-                          uint8_t* __restrict__ stego,
-                          uint8_t* __restrict__ rows,
-                          const float* __restrict__ dct, int h, int w,
+                          uint8_t* __restrict__ stego, int* __restrict__ bpf,
+                          uint8_t* __restrict__ rows, int h, int w,
                           int num_ac, long long cap, long long total_bits,
                           int stripe_blocks, int rows_pad, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
+  const ConstDct m{};
+  const int f = blockIdx.z;
+  frame_bits(bpf, f, total_bits - f * cap, cap);  // no bit offset
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
   if (bx >= bw) return;
   const int by = blockIdx.y;
-  const int f = blockIdx.z;
   const long long blk = static_cast<long long>(by) * bw + bx;
-  const long long rem = total_bits - f * cap - blk * num_ac;  // no bit offset
+  const long long rem = total_bits - f * cap - blk * num_ac;
   const size_t off = block_offset(f, by, bx, h, w);
 
   uint2 raw[8];
   load_rows(frames + off, w, raw);
   if (rem > 0 && delta > 0.0f)
-    embed_block<RN>(raw, m, WireBits{payload + f * cap + blk * num_ac}, rem,
-                    num_ac, delta);
+    embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(
+        raw, m, WireBits{payload + f * cap + blk * num_ac}, rem, num_ac, delta);
   store_rows(stego + off, w, raw);
   // re-extract from the quantized stego, still in registers
   uint32_t byte[RN];
-  slot_bits<RN>(raw, m, delta, byte);
+  slot_bits<RN, Arith>(raw, m, delta, byte);
   write_rows<RN>(rows, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
 }
 
@@ -352,17 +369,21 @@ int stegotpu_qim_extract_packed(const void* frames, void* packed, int device,
 }
 
 // frames: (B, H, W) u8; rows: (B, (H/stripe)*rows_pad, W) u8.
-int stegotpu_qim_extract_rows(const void* frames, void* rows, const void* dct,
-                              int device, int b, int h, int w, int num_ac,
-                              int stripe, int rows_pad, float delta,
-                              void* stream) {
+int stegotpu_qim_extract_rows(const void* frames, void* rows, int device,
+                              int b, int h, int w, int num_ac, int stripe,
+                              int rows_pad, float delta, void* stream) {
   const cudaError_t err = begin(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_ROWS(RN)                                                   \
-  qim_extract_rows_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(        \
-      static_cast<const uint8_t*>(frames), static_cast<uint8_t*>(rows),     \
-      static_cast<const float*>(dct), h, w, stripe / 8, rows_pad, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<uint8_t*>(rows), h, w,
+        stripe / 8, rows_pad, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_ROWS(RN)                                      \
+  launch(fast ? qim_extract_rows_kernel<RN, ArithHopper>      \
+              : qim_extract_rows_kernel<RN, ArithHopperSmallDelta>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_ROWS)
 #undef STEGOTPU_ROWS
   return static_cast<int>(cudaGetLastError());
@@ -398,23 +419,31 @@ int stegotpu_qim_roundtrip_packed(const void* frames, const void* payload,
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames, stego: (B, H, W) u8; payload: (B, cap) u8; rows as for
-// stegotpu_qim_extract_rows. Global bit 0 is the payload's first bit.
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8; bpf as for
+// stegotpu_qim_embed; rows as for stegotpu_qim_extract_rows. Global bit 0
+// is the payload's first bit.
 int stegotpu_qim_roundtrip_rows(const void* frames, const void* payload,
-                                void* stego, void* rows, const void* dct,
-                                int device, int b, int h, int w, int num_ac,
+                                void* stego, void* bpf, void* rows, int device,
+                                int b, int h, int w, int num_ac,
                                 long long total_bits, int stripe, int rows_pad,
                                 float delta, void* stream) {
   const cudaError_t err = begin(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_ROUNDTRIP_ROWS(RN)                                         \
-  qim_roundtrip_rows_kernel<RN><<<grid_of(b, h, w), kThreads, 0, s>>>(      \
-      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
-      static_cast<uint8_t*>(stego), static_cast<uint8_t*>(rows),            \
-      static_cast<const float*>(dct), h, w, num_ac, cap, total_bits,        \
-      stripe / 8, rows_pad, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf),
+        static_cast<uint8_t*>(rows), h, w, num_ac, cap, total_bits,
+        stripe / 8, rows_pad, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_ROUNDTRIP_ROWS(RN)                                     \
+  launch(fast ? qim_roundtrip_rows_kernel<RN, ArithHopper,             \
+                                          capped_minb(RN, STEGOTPU_K6_MINB)> \
+              : qim_roundtrip_rows_kernel<RN, ArithHopperSmallDelta,   \
+                                          capped_minb(RN, STEGOTPU_K6_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_ROUNDTRIP_ROWS)
 #undef STEGOTPU_ROUNDTRIP_ROWS
   return static_cast<int>(cudaGetLastError());

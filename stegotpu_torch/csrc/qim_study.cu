@@ -162,7 +162,7 @@ qim_ablation_kernel(const void* __restrict__ frames, uint8_t* __restrict__ out,
     }
     if constexpr (V == kFull || V == kFullNotrunc) {
       uint32_t byte[RN];
-      slot_bits_of<RN>(x, m, delta, byte);  // K5's decode
+      slot_bits_of<RN>(x, m, delta, byte);  // K5's decode, ArithCvt
       write_rows<RN>(out, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
     } else {
       float y[RN][8];

@@ -131,8 +131,7 @@ ARGTYPES = {
     "stegotpu_qim_embed": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i64, _i64, _f,
                            _p],
     "stegotpu_qim_extract_packed": [_p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
-    "stegotpu_qim_extract_rows": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f,
-                                  _p],
+    "stegotpu_qim_extract_rows": [_p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p],
     "stegotpu_qim_roundtrip_packed": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                       _i64, _i, _i, _f, _p],
     "stegotpu_qim_roundtrip_rows": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i,

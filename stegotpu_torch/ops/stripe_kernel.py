@@ -22,9 +22,9 @@ bound by ops/_build.py) with its plain PyTorch version beside it:
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
-no fallback. K1-K4 take the Hopper spelling of the shared block
+no fallback. All six take the Hopper spelling of the shared block
 arithmetic (csrc/qim_common.cuh ArithHopper: the same bytes, no
-conversion instruction at delta >= 2^-10); one K1 or K4 call is one
+conversion instruction at delta >= 2^-10); one K1, K4 or K6 call is one
 kernel, which writes the bits per frame beside its outputs, and one K3
 call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
 ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
@@ -414,7 +414,8 @@ _DCT_ON_DEVICE: dict[torch.device, torch.Tensor] = {}
 
 
 def _dct_on(device: torch.device) -> torch.Tensor:
-    """dct_matrix(8) as f32 on `device` (the kernels' 64-entry operand)."""
+    """dct_matrix(8) as f32 on `device`: the 64-entry operand of the study
+    kernels K9-K11 and K13, which keep the matrix in shared memory."""
     if device not in _DCT_ON_DEVICE:
         from stegotpu_torch.ops.dct import dct_matrix
 
@@ -522,8 +523,8 @@ def extract_frames_rows(frames: torch.Tensor, delta: float,
     if rows.numel():
         dev = frames.device
         _launch("stegotpu_qim_extract_rows", frames.data_ptr(),
-                rows.data_ptr(), _dct_on(dev).data_ptr(), dev.index, b, h, w,
-                num_ac, stripe, rp, float(delta), _stream(dev))
+                rows.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
+                float(delta), _stream(dev))
         EXTRACT_ROWS_LAUNCHES += 1
     return rows
 
@@ -613,25 +614,28 @@ def embed_and_extract_frames_rows(
     the unpacked compact rows. Returns (stego (B, H, W) uint8, bits per
     frame (B,) int32, rows (B, (H/stripe)*rows_pad, W) uint8 in K5's
     layout), on the frames' device. Global bit 0 is the payload's first bit
-    (no bit offset)."""
+    (no bit offset). On the card all three come from the one kernel
+    launch: the kernel writes the bits per frame too."""
     global ROUNDTRIP_ROWS_LAUNCHES
     b, h, w = _check_frames(frames)
-    cap = _check_payload(payload_bits, frames, num_ac)
+    _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
         return embed_and_extract_frames_rows_plain(
             frames, payload_bits, total_bits, delta, num_ac)
     shape, stripe, rp = _packed_shape(b, h, w, num_ac, w)
     stego = torch.empty_like(frames)
     rows = torch.empty(shape, dtype=torch.uint8, device=frames.device)
-    if stego.numel():
-        dev = frames.device
-        _launch("stegotpu_qim_roundtrip_rows", frames.data_ptr(),
-                payload_bits.data_ptr(), stego.data_ptr(), rows.data_ptr(),
-                _dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                int(total_bits), stripe, rp, float(delta), _stream(dev))
-        ROUNDTRIP_ROWS_LAUNCHES += 1
-    return stego, _bits_per_frame(b, cap, int(total_bits), 0,
-                                  frames.device), rows
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32,
+                                  device=frames.device), rows
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    _launch("stegotpu_qim_roundtrip_rows", frames.data_ptr(),
+            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+            rows.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+            stripe, rp, float(delta), _stream(dev))
+    ROUNDTRIP_ROWS_LAUNCHES += 1
+    return stego, bpf, rows
 
 
 def embed_and_extract_frames_fused(

@@ -15,8 +15,8 @@ parameters' bank 0).
 
     python -m stegotpu_torch.studies.sass [--lib PATH] [--kernels a,b]
 
-prints one JSON row per matching instantiation (default: K1, K2, K3 and
-K4, at rn=2). ``--lib`` reads another
+prints one JSON row per matching instantiation (default: K1-K6, the
+stripe kernels, at rn=2). ``--lib`` reads another
 build of the library, e.g. a parent checkout's. It needs the CUDA
 toolkit's ``cuobjdump``, not a card.
 """
@@ -33,9 +33,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the kernel templates of K1, K2, K3 and K4
+# the kernel templates of K1-K6
 DEFAULT_KERNELS = ("qim_embed_kernel", "qim_extract_packed_kernel",
-                   "qim_embed_check_kernel", "qim_roundtrip_packed_kernel")
+                   "qim_embed_check_kernel", "qim_roundtrip_packed_kernel",
+                   "qim_extract_rows_kernel", "qim_roundtrip_rows_kernel")
 REPORTED = ("I2F", "I2FP", "F2I", "F2F", "FRND", "MUFU", "FCHK", "LDS",
             "LDC", "PRMT", "FADD", "FFMA", "FFMA_imm", "FFMA_cbank")
 

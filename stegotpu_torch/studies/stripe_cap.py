@@ -2,28 +2,32 @@
 timed on the card against the library.
 
 At num_ac <= 15 the library builds K1 (``qim_embed_kernel`` in
-``csrc/qim_stripe.cu``), K3 (``qim_embed_check_kernel``) and K4
-(``qim_roundtrip_packed_kernel``) with ``__launch_bounds__`` asking ptxas
-to fit ``STEGOTPU_K1_MINB``, ``STEGOTPU_K3_MINB`` and ``STEGOTPU_K4_MINB``
-CTAs an SM (8 each in the library; 1: no cap; a capped build also
-re-derives each pixel instead of keeping the block live). This study
-rebuilds ``qim_stripe.cu`` once per entry of ``--minb`` (``k3:9`` is nvcc
-``-DSTEGOTPU_K3_MINB=9``; ``k1:1`` is K1 without its cap) and once per
-entry of ``--src`` (``name=DIR``:
+``csrc/qim_stripe.cu``), K3 (``qim_embed_check_kernel``), K4
+(``qim_roundtrip_packed_kernel``) and K6 (``qim_roundtrip_rows_kernel``)
+with ``__launch_bounds__`` asking ptxas to fit ``STEGOTPU_K1_MINB``,
+``STEGOTPU_K3_MINB``, ``STEGOTPU_K4_MINB`` and ``STEGOTPU_K6_MINB`` CTAs
+an SM (8 each in the library; 1: no cap; a capped build also re-derives
+each pixel instead of keeping the block live). K5
+(``qim_extract_rows_kernel``) has no cap, as K2 has none: it is timed and
+held byte for byte in every build, and no ``--minb`` entry names it. This
+study rebuilds ``qim_stripe.cu`` once per entry of ``--minb`` (``k3:9`` is
+nvcc ``-DSTEGOTPU_K3_MINB=9``; ``k6:1`` is K6 without its cap) and once
+per entry of ``--src`` (``name=DIR``:
 ``DIR/qim_stripe.cu`` with the headers beside it, a source with the same C
 interface, such as one step of a redesign), each into a library of its own
 under ``_build/stripe_cap/``, all nvcc at once, and reads each build's K1,
-K3 and K4 registers and spill bytes from ptxas. It reads one call of each
-of the library's kernels from the device timeline (``torch.profiler``:
-the kernel's time and the other device ops of a call, the wrapper's
-glue). Then, for the library and every build in turn, forward and backward
-over ``--rounds`` rounds, it holds each kernel's outputs to the library's
-byte for byte (at delta 20 and 2^-11) and times each kernel (ms per call,
-and its share of the bound), queued behind a sleep kernel over 1920x1080
-B=8 input sets that together exceed the L2 (the inputs of chip_smoke.py
-phase 4). One JSON row per build and round; the first row names the card.
+K3, K4, K5 and K6 registers and spill bytes from ptxas. It reads one call
+of each of the library's kernels from the device timeline
+(``torch.profiler``: the kernel's time and the other device ops of a
+call, the wrapper's glue). Then, for the library and every build in turn,
+forward and backward over ``--rounds`` rounds, it holds each kernel's
+outputs to the library's byte for byte (at delta 20 and 2^-11) and times
+each kernel (ms per call, and its share of the bound), queued behind a
+sleep kernel over 1920x1080 B=8 input sets that together exceed the L2
+(the inputs of chip_smoke.py phase 4). One JSON row per build and round;
+the first row names the card.
 
-    python -m stegotpu_torch.studies.stripe_cap [--minb k1:1,k3:8]
+    python -m stegotpu_torch.studies.stripe_cap [--minb k1:1,k6:8]
         [--src step1=DIR] [--num-ac 10]
 """
 
@@ -46,15 +50,27 @@ from stegotpu_torch.studies import bounds, harness, sass
 # the sets rotate over at least this many bytes, five times the 50 MB L2
 COLD_BYTES = 256 << 20
 
+
+def _extract_rows(frames, payload, total_bits, delta, num_ac):
+    """K5 called as the embedding kernels are: (rows,) of the frames."""
+    return (sk.extract_frames_rows(frames, delta, num_ac),)
+
+
 # kernel key -> (its name on chip_smoke.py's kernels line, its template
-# name, its wrapper, the -D of its register cap)
+# name, its wrapper (frames, payload, total_bits, delta, num_ac) -> a tuple
+# of tensors, the -D of its register cap or None)
 KERNELS = {
     "k1": ("embed", "qim_embed_kernel", sk.embed_frames, "STEGOTPU_K1_MINB"),
     "k3": ("embed_check", "qim_embed_check_kernel", sk.embed_and_check_frames,
            "STEGOTPU_K3_MINB"),
     "k4": ("roundtrip_packed", "qim_roundtrip_packed_kernel",
            sk.embed_and_extract_frames_packed, "STEGOTPU_K4_MINB"),
+    "k5": ("extract_rows", "qim_extract_rows_kernel", _extract_rows, None),
+    "k6": ("roundtrip_rows", "qim_roundtrip_rows_kernel",
+           sk.embed_and_extract_frames_rows, "STEGOTPU_K6_MINB"),
 }
+# the kernels with a register cap: the keys that --minb takes
+CAPPED = tuple(k for k, v in KERNELS.items() if v[3])
 
 
 def variants_of(minb: str, src: str = "") -> list[tuple[str, dict | None]]:
@@ -64,9 +80,9 @@ def variants_of(minb: str, src: str = "") -> list[tuple[str, dict | None]]:
     out: list[tuple[str, dict | None]] = [("library", None)]
     for spec in filter(None, minb.split(",")):
         k, _, n = spec.partition(":")
-        if k not in KERNELS or not n.isdigit() or int(n) < 1:
-            raise ValueError(f"--minb {spec!r}: want k1, k3 or k4, a colon "
-                             "and the CTAs per SM, an integer >= 1")
+        if k not in CAPPED or not n.isdigit() or int(n) < 1:
+            raise ValueError(f"--minb {spec!r}: want {', '.join(CAPPED)}, a "
+                             "colon and the CTAs per SM, an integer >= 1")
         out.append((f"{k}_minb_{int(n)}",
                     {"defines": {KERNELS[k][3]: int(n)}}))
     for spec in filter(None, src.split(",")):
@@ -143,7 +159,8 @@ def main(argv=None) -> int:
                         "the library's.", 8)
     ap.add_argument("--minb", default="",
                     help="extra builds, comma-separated kernel:CTAs per SM "
-                         "(k1, k3 or k4; 1 is the build without a cap)")
+                         f"({', '.join(CAPPED)}; 1 is the build without a "
+                         "cap)")
     ap.add_argument("--src", default="",
                     help="extra builds, comma-separated name=DIR: "
                          "DIR/qim_stripe.cu with the same C interface")

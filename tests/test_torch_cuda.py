@@ -194,15 +194,19 @@ IDENTITY_DELTAS = [20.0, 8.0, 0.0, 1.0, 0.5, 100.0, 2.0**-10, 2.0**-11, 1e-4,
     (2, 48, 240, 10, 1.0), (2, 64, 64, 63, 1.0), (2, 1080, 1920, 10, 1.0),
     (2, 768, 1360, 30, 1.0), (3, 40, 136, 1, 1.4), (3, 48, 1048, 63, 1.6)])
 def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
-    """Kernel against kernel: K3's, K4's and K6's stego are K1's byte for
-    byte, K4's packed bits are K2's of K4's stego byte for byte, K5 is K2
-    lane for lane, K3's per-frame count equals a count from K2 on K3's
-    stego, and K13 (a ring of 2) and, at an even B, K11 are K4 (stego,
-    bits per frame, packed bits). K1-K4 spell the arithmetic for Hopper,
-    K5, K6, K11 and K13 with conversion instructions: the two spellings
-    give the same bytes at every delta. The last two shapes have W % 16 ==
-    8 and a payload that ends mid-frame."""
+    """Kernel against kernel: K3's, K4's and K6's stego and bits per frame
+    are K1's byte for byte, K4's packed bits are K2's of K4's stego and
+    K6's rows K5's of K6's stego byte for byte, K5 is K2 lane for lane,
+    K3's per-frame count equals a count from K2 on K3's stego, K9 full is
+    K5 byte for byte, and K13 (a ring of 2) and, at an even B, K11 are K4
+    (stego, bits per frame, packed bits). K1-K6 spell the arithmetic for
+    Hopper (ArithHopperSmallDelta below delta 2^-10), K9, K11 and K13 with
+    conversion instructions: K9 full == K5 is the extract side's witness
+    across the two spellings, K11 == K13 == K4 the round trip's, and the
+    two give the same bytes at every delta. The last two shapes have W %
+    16 == 8 and a payload that ends mid-frame."""
     from stegotpu_torch.studies import dualchain_r5, emitpipe_r4
+    from stegotpu_torch.studies import extract_ablation as ea
 
     frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
     if frac != 1.0:  # ends inside frame 1
@@ -212,11 +216,12 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
     s3, bpf3, err3 = sk.embed_and_check_frames(*args)
     k4 = sk.embed_and_extract_frames_packed(*args)
     s4, bpf4, p4 = k4
-    s6, bpf6, _ = sk.embed_and_extract_frames_rows(*args)
+    s6, bpf6, r6 = sk.embed_and_extract_frames_rows(*args)
     assert torch.equal(s3, s1) and torch.equal(s4, s1) and torch.equal(s6, s1)
     assert torch.equal(bpf3, bpf1) and torch.equal(bpf4, bpf1)
     assert torch.equal(bpf6, bpf1)
     assert torch.equal(p4, sk.extract_frames_packed(s4, delta, num_ac))
+    assert torch.equal(r6, sk.extract_frames_rows(s6, delta, num_ac))
     others = [emitpipe_r4.roundtrip_pipelined_packed(*args, bufs=2)]
     if b % 2 == 0:  # dual_roundtrip_packed takes two frames a thread
         others.append(dualchain_r5.dual_roundtrip_packed(*args))
@@ -228,6 +233,7 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
         spread = (packed[..., None] >> torch.arange(8, dtype=torch.uint8,
                                                     device=dev)) & 1
         assert torch.equal(rows, spread.reshape(rows.shape))
+        assert torch.equal(ea.ablate(x, delta, num_ac, "full"), rows)
     count = sk.count_wrong_bits(sk.extract_frames(s3, delta, num_ac),
                                 payload, total)
     assert torch.equal(err3, count)
@@ -238,20 +244,21 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
 
 @functools.cache
 def _uncapped():
-    """The kernel library built without the register caps of K1, K3 and
-    K4 (-DSTEGOTPU_K1_MINB=1 and so on, studies/stripe_cap.py), built
+    """The kernel library built without the register caps of K1, K3, K4
+    and K6 (-DSTEGOTPU_K1_MINB=1 and so on, studies/stripe_cap.py), built
     once."""
     from stegotpu_torch.studies import stripe_cap
 
-    how = {"defines": {stripe_cap.KERNELS[k][3]: 1 for k in stripe_cap.KERNELS}}
+    how = {"defines": {stripe_cap.KERNELS[k][3]: 1 for k in stripe_cap.CAPPED}}
     return stripe_cap.build_variants([("uncapped", how)])["uncapped"][0]
 
 
 @pytest.mark.parametrize("delta", [20.0, 0.5, 2.0**-11])
 @pytest.mark.parametrize("num_ac", [10, 15, 1, 30])
 def test_capped_and_uncapped_builds_agree(dev, num_ac, delta):
-    """The register-capped builds of K1, K3 and K4 (num_ac <= 15, with the
-    pixel re-derive) and the builds without a cap give the same bytes."""
+    """The register-capped builds of K1, K3, K4 and K6 (num_ac <= 15, with
+    the pixel re-derive) and the builds without a cap give the same bytes,
+    and K5 (no cap) the same rows in both libraries."""
     from stegotpu_torch.studies import stripe_cap
 
     frames, payload, total = _cover(dev, "mid", 2, 1080, 1920, num_ac)
@@ -284,25 +291,26 @@ def test_embed_writes_bits_per_frame(dev, b, h, w, num_ac):
 
 @pytest.mark.parametrize("b,h,w,num_ac", [(3, 48, 240, 10), (4, 40, 136, 63)])
 def test_fused_kernels_write_bits_per_frame(dev, b, h, w, num_ac):
-    """The bits per frame that K3 and K4 write beside their outputs equal
-    _bits_per_frame (no bit offset), with a payload that ends mid-frame,
-    one that ends at a frame's end, one that runs past the batch and an
-    empty one."""
+    """The bits per frame that K3, K4 and K6 write beside their outputs
+    equal _bits_per_frame (no bit offset), with a payload that ends
+    mid-frame, one that ends at a frame's end, one that runs past the
+    batch, an empty one and one past 2^32."""
     frames, payload, _ = _cover(dev, "mid", b, h, w, num_ac)
     cap = payload.shape[1]
-    for total in (int(1.6 * cap), 2 * cap, 10**9, 0):
+    for total in (int(1.6 * cap), 2 * cap, 10**9, 0, 2**33 + 7):
         want = sk._bits_per_frame(b, cap, total, 0, dev)
         for fn in (sk.embed_and_check_frames,
-                   sk.embed_and_extract_frames_packed):
+                   sk.embed_and_extract_frames_packed,
+                   sk.embed_and_extract_frames_rows):
             _, bpf, _ = fn(frames, payload, total, 20.0, num_ac)
             assert bpf.dtype == torch.int32 and bpf.device == frames.device
             assert torch.equal(bpf, want), (fn.__name__, total)
 
 
 def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
-    """One K1, K2 or K4 call is one device kernel and nothing else: the
-    device timeline of torch.profiler holds no glue. One K3 call is its
-    kernel behind one memset of its counts."""
+    """One K1, K2, K4, K5 or K6 call is one device kernel and nothing
+    else: the device timeline of torch.profiler holds no glue. One K3 call
+    is its kernel behind one memset of its counts."""
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 240, 10)
@@ -313,6 +321,10 @@ def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
              lambda: sk.extract_frames_packed(frames, 20.0, 10), {}),
             ("qim_roundtrip_packed_kernel",
              lambda: sk.embed_and_extract_frames_packed(*args), {}),
+            ("qim_extract_rows_kernel",
+             lambda: sk.extract_frames_rows(frames, 20.0, 10), {}),
+            ("qim_roundtrip_rows_kernel",
+             lambda: sk.embed_and_extract_frames_rows(*args), {}),
             ("qim_embed_check_kernel",
              lambda: sk.embed_and_check_frames(*args), {"gpu_memset": 1.0})):
         summ = dr.parse_device_timeline(
@@ -322,15 +334,27 @@ def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
         assert summ["glue_per_iter"] == glue, summ
 
 
-def test_fused_kernels_launch_once_each(dev):
+def test_fused_kernels_launch_once_each(dev, tmp_path):
+    """One call of K3, K4, K5 or K6 counts one launch; a K6 call (rows and
+    bits per frame from the kernel) is one device kernel on the timeline
+    and nothing else."""
+    from stegotpu_torch.studies import device_roofline as dr
+
     frames, payload, total = _cover(dev, "mid", 2, 48, 128, 10)
     before = (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-              sk.EXTRACT_ROWS_LAUNCHES)
+              sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES)
     sk.embed_and_check_frames(frames, payload, total, 20.0, 10)
     sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
     sk.extract_frames_rows(frames, 20.0, 10)
+    sk.embed_and_extract_frames_rows(frames, payload, total, 20.0, 10)
     assert (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-            sk.EXTRACT_ROWS_LAUNCHES) == tuple(n + 1 for n in before)
+            sk.EXTRACT_ROWS_LAUNCHES,
+            sk.ROUNDTRIP_ROWS_LAUNCHES) == tuple(n + 1 for n in before)
+    summ = dr.parse_device_timeline(dr._trace(
+        lambda: sk.embed_and_extract_frames_rows(frames, payload, total, 20.0,
+                                                 10), 4, tmp_path / "k6.json"), 4)
+    assert "qim_roundtrip_rows_kernel" in summ["kernel_name"], summ
+    assert summ["kernel_count"] == 4 and summ["glue_per_iter"] == {}, summ
 
 
 def test_verified_fast_path_on_card(dev):
@@ -370,15 +394,17 @@ def test_exactness_harness_on_card(dev):
 
 
 @pytest.mark.parametrize("kind", ["mid", "dark"])
-@pytest.mark.parametrize("delta", [20.0, 8.0, 0.0])
+@pytest.mark.parametrize("delta", [20.0, 8.0, 0.0, 2.0**-11, -4.0])
 @pytest.mark.parametrize("b,h,w,num_ac", [(2, 48, 240, 10), (2, 64, 64, 63),
                                           (2, 1080, 1920, 10),
                                           (2, 768, 1360, 15)])
 def test_roundtrip_rows_identities(dev, b, h, w, num_ac, delta, kind):
     """K6 against K1, K5 and K4, zero tolerance (same device code): its
-    stego is K1's, its rows are K5's reading of that stego, its wire-order
-    bits are K4's unpacked; and against its plain version under the
-    envelope."""
+    stego and bits per frame are K1's, its rows are K5's reading of that
+    stego, its wire-order bits are K4's unpacked; and against its plain
+    version under the envelope. At delta 2^-11 (ArithHopperSmallDelta)
+    the u8 stego cannot hold the lattice, so the payload comes back only
+    at delta 8 and 20."""
     frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
     args = (frames, payload, total, delta, num_ac)
     before = sk.ROUNDTRIP_ROWS_LAUNCHES
@@ -414,7 +440,7 @@ def test_roundtrip_rows_identities(dev, b, h, w, num_ac, delta, kind):
         assert not ((bits6 != bits6p) & ~_near_boundary(s6, delta, num_ac)).any()
     else:
         assert not bits6.any() and torch.equal(s6, frames)
-    if kind == "mid" and delta > 0:
+    if kind == "mid" and delta >= 8.0:
         valid = torch.arange(payload.numel(), device=dev).reshape(
             payload.shape) < total
         assert torch.equal(bits6[valid], payload[valid])

@@ -1,5 +1,6 @@
-"""The exact conversions of K1's and K2's Hopper arithmetic, and the DCT
-literals of the constant bank, proven on the CPU.
+"""The exact conversions of the stripe kernels' Hopper arithmetic, the DCT
+literals of the constant bank, K5's lane spread and K6's bits per frame,
+proven on the CPU.
 
 csrc/qim_common.cuh spells three exact operations on the full-rate pipes
 (ArithHopper) instead of the conversion instructions (ArithCvt). Each is
@@ -14,7 +15,12 @@ checked here with numpy in float32 and float64 as the exact reference:
 - the truncating f32 -> u8 after the clamp: the low byte of
   RZ(o + 2^23) == trunc(o) on [0, 255], and the PRMT packing of four;
 - the 64 hex-float literals of csrc/dct8_f32.cuh, bit for bit the port's
-  and the JAX package's dct_matrix(8, float32).
+  and the JAX package's dct_matrix(8, float32);
+- write_rows' spread of a slot row's byte to its 8 lanes by two integer
+  multiplies, against the first design's shifts and the plain version's
+  lanes, for every byte;
+- frame_bits' clamp with K6's arguments (no bit offset) against the
+  wrapper's plain _bits_per_frame, int64 totals included.
 """
 
 import re
@@ -22,8 +28,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from stegotpu.ops.dct import dct_matrix as jax_pkg_dct_matrix
+from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.dct import dct_matrix
 
 CSRC = Path(__file__).resolve().parents[1] / "stegotpu_torch" / "csrc"
@@ -218,3 +226,72 @@ def test_dct_literals_are_the_f32_matrix_bit_for_bit():
     np.testing.assert_array_equal(as32.astype(np.float64), lit)  # exact f32s
     for ref in (dct_matrix(8, np.float32), jax_pkg_dct_matrix(8, np.float32)):
         np.testing.assert_array_equal(as_u32(as32), as_u32(ref))
+
+
+# --- K5's and K6's lane spread ----------------------------------------------------
+
+def _between(path: str, start: str, end: str) -> str:
+    text = (CSRC / path).read_text()
+    i = text.index(start)
+    return text[i:text.index(end, i)]
+
+
+def test_lane_spread_by_multiply_equals_the_shifts_for_every_byte():
+    """write_rows (csrc/qim_common.cuh): lo = ((byte & 0xF) * M) & L and
+    hi = ((byte >> 4) * M) & L, M = 1 + 2^7 + 2^14 + 2^21, L = 0x01010101,
+    equal the first design's four shift/and/or steps a half, and their
+    bytes are the plain version's lanes ((byte >> s) & 1, s = 0..7)."""
+    body = _between("qim_common.cuh", "void write_rows(", "void load_dct(")
+    consts = re.findall(r"\) \* (0x[0-9a-f]+)u\) & (0x[0-9a-f]+)u", body)
+    assert consts == [("0x00204081", "0x01010101")] * 2, consts
+    mul, mask = (np.uint32(int(c, 16)) for c in consts[0])
+    byte = np.arange(256, dtype=np.uint32)
+    lo = ((byte & np.uint32(0xF)) * mul) & mask
+    hi = ((byte >> np.uint32(4)) * mul) & mask
+    old_lo = np.zeros_like(byte)
+    old_hi = np.zeros_like(byte)
+    for s in range(4):
+        old_lo |= ((byte >> np.uint32(s)) & np.uint32(1)) << np.uint32(8 * s)
+        old_hi |= ((byte >> np.uint32(s + 4)) & np.uint32(1)) << np.uint32(8 * s)
+    np.testing.assert_array_equal(lo, old_lo)
+    np.testing.assert_array_equal(hi, old_hi)
+    lanes = np.stack([lo, hi], axis=1).view(np.uint8)  # little-endian words
+    want = (byte[:, None] >> np.arange(8, dtype=np.uint32)) & np.uint32(1)
+    np.testing.assert_array_equal(lanes, want.astype(np.uint8))
+
+
+# --- K6's bits per frame ------------------------------------------------------------
+
+def _frame_bits(left: int, cap: int) -> int:
+    """frame_bits of csrc/qim_stripe.cu: clamp(left, 0, cap) in long long,
+    cast to int."""
+    return int(np.int32(0 if left < 0 else (left if left < cap else cap)))
+
+
+def test_k6_passes_frame_bits_no_bit_offset():
+    body = _between("qim_stripe.cu", "void frame_bits(", "}")
+    assert "left < 0 ? 0 : (left < cap ? left : cap)" in body
+    k6 = _between("qim_stripe.cu", "qim_roundtrip_rows_kernel(const",
+                  "store_rows(")
+    assert "frame_bits(bpf, f, total_bits - f * cap, cap);" in k6
+    assert "long long cap, long long total_bits" in k6
+
+
+CAP_1080 = 135 * 240 * 10
+
+
+@pytest.mark.parametrize("b,cap,total", [
+    (3, 4800, 0),                           # no payload
+    (3, 4800, int(1.6 * 4800)),             # ends mid-frame
+    (3, 4800, 2 * 4800),                    # ends at a frame's end
+    (3, 4800, 10**9),                       # runs past the last frame
+    (4, 9216, -5),                          # a negative total
+    (2, 1, 1),                              # one slot a frame
+    (8, CAP_1080, 2**33 + 7),               # an int64 total
+    (8000, CAP_1080, 7000 * CAP_1080 + 17),  # f * cap past 2^31
+])
+def test_frame_bits_clamp_equals_bits_per_frame(b, cap, total):
+    want = sk._bits_per_frame(b, cap, total, 0, "cpu")
+    got = [_frame_bits(total - f * cap, cap) for f in range(b)]
+    assert want.dtype == torch.int32
+    assert want.tolist() == got

@@ -19,6 +19,12 @@ ANON = "_ZN46_GLOBAL__N__37f1a9c4_13_qim_stripe_cu_3417f3f1"
      "qim_extract_packed_kernel<1, ArithHopperSmallDelta>"),
     (ANON + "25qim_roundtrip_pipe_kernelILi2ELi3ELi4EEEvPKh",
      "qim_roundtrip_pipe_kernel<2, 3, 4>"),
+    ("_ZN12_GLOBAL__N_123qim_extract_rows_kernelILi2EN12_GLOBAL__N_1"
+     "11ArithHopperEEEvPKhPhiiiif",
+     "qim_extract_rows_kernel<2, ArithHopper>"),
+    (ANON + "25qim_roundtrip_rows_kernelILi2ENS_21ArithHopperSmallDeltaELi8EEE"
+     "vPKhS3_PhPiS4_iiixxiif",
+     "qim_roundtrip_rows_kernel<2, ArithHopperSmallDelta, 8>"),
     ("_ZN44_GLOBAL__N__6510120b_11_qim_kron_cu_d1dda33b19kron_extract_kernelEPKhPhPKfiiixf",
      "kron_extract_kernel"),
     ("not_mangled", "not_mangled"),
@@ -66,9 +72,56 @@ def test_cap_builds_of_the_minb_option():
         ("k3_minb_8", {"defines": {"STEGOTPU_K3_MINB": 8}}),
         ("k4_minb_4", {"defines": {"STEGOTPU_K4_MINB": 4}}),
         ("step1", {"src": "/tmp/a"})]
-    for bad in ("k1:0", "k1:8/16", "k1:x", "9", "k2:8"):
+    assert stripe_cap.variants_of("k6:1,k6:8,k6:9") == [
+        ("library", None),
+        ("k6_minb_1", {"defines": {"STEGOTPU_K6_MINB": 1}}),
+        ("k6_minb_8", {"defines": {"STEGOTPU_K6_MINB": 8}}),
+        ("k6_minb_9", {"defines": {"STEGOTPU_K6_MINB": 9}})]
+    # K2 and K5 have no cap; k6:0 asks for no CTA at all
+    for bad in ("k1:0", "k1:8/16", "k1:x", "9", "k2:8", "k5:8", "k6:0",
+                "k6:", "k7:8"):
         with pytest.raises(ValueError, match="CTAs per SM"):
             stripe_cap.variants_of(bad)
     for bad in ("step1", "=/tmp/a", "library=/tmp/a"):
         with pytest.raises(ValueError, match="name=DIR"):
             stripe_cap.variants_of("", bad)
+
+
+def test_default_kernels_are_the_six_stripe_templates():
+    """sass.py's default rows are K1-K6, each a kernel template of
+    csrc/qim_stripe.cu."""
+    from stegotpu_torch.ops import _build
+
+    src = (_build.CSRC / "qim_stripe.cu").read_text()
+    assert sass.DEFAULT_KERNELS == (
+        "qim_embed_kernel", "qim_extract_packed_kernel",
+        "qim_embed_check_kernel", "qim_roundtrip_packed_kernel",
+        "qim_extract_rows_kernel", "qim_roundtrip_rows_kernel")
+    for k in sass.DEFAULT_KERNELS:
+        assert f"\n{k}(" in src, k
+
+
+def test_rows_take_the_default_kernels_at_rn(monkeypatch):
+    """rows() keeps every instantiation of a default kernel at the asked
+    rn, K5's and K6's among them, and nothing else."""
+    fns = {
+        ANON + "23qim_extract_rows_kernelILi2ENS_11ArithHopperEEEvPKh":
+            ["  /*0000*/  I2F.U32.RP R1, R2 ;", "  /*0010*/  PRMT R3, R4 ;"],
+        ANON + "25qim_roundtrip_rows_kernelILi2ENS_11ArithHopperELi8EEEvPKh":
+            ["  /*0000*/  FFMA R1, R2, 0.5, R3 ;"],
+        ANON + "25qim_roundtrip_rows_kernelILi3ENS_11ArithHopperELi1EEEvPKh":
+            ["  /*0000*/  FRND R1, R2 ;"],
+        ANON + "19qim_ablation_kernelILi2ELi0EEEvPKv": ["  /*0000*/  LDS R1 ;"],
+    }
+    text = "".join(f"\t\tFunction : {name}\n" + "\n".join(lines) + "\n"
+                   for name, lines in fns.items())
+    monkeypatch.setattr(sass, "dump", lambda lib: text)
+    got = {r["kernel"]: r for r in sass.rows("lib.so")}
+    assert set(got) == {"qim_extract_rows_kernel<2, ArithHopper>",
+                        "qim_roundtrip_rows_kernel<2, ArithHopper, 8>"}
+    k5 = got["qim_extract_rows_kernel<2, ArithHopper>"]
+    assert (k5["I2F"], k5["PRMT"], k5["FRND"], k5["instructions"]) == (1, 1, 0, 2)
+    k6 = got["qim_roundtrip_rows_kernel<2, ArithHopper, 8>"]
+    assert (k6["FFMA"], k6["FFMA_imm"], k6["LDS"]) == (1, 1, 0)
+    assert "qim_extract_rows_kernel<2, ArithHopper> I2F=1" in sass.summary(
+        list(got.values()))

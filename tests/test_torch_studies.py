@@ -553,6 +553,47 @@ def test_queued_ms_retakes_a_reading_the_host_fell_behind_on(
     assert ms == pytest.approx(10.0 * readings / 5)
 
 
+# --- stripe_cap's kernels ----------------------------------------------------------
+
+STRIPE_CAP_PLAIN = {
+    "k1": sk.embed_frames_plain,
+    "k3": sk.embed_and_check_frames_plain,
+    "k4": sk.embed_and_extract_frames_packed_plain,
+    "k5": lambda f, p, t, d, n: (sk.extract_frames_rows_plain(f, d, n),),
+    "k6": sk.embed_and_extract_frames_rows_plain,
+}
+
+
+@pytest.mark.parametrize("key", sorted(stripe_cap.KERNELS))
+def test_stripe_cap_kernels_name_the_library(key):
+    """Each kernel that stripe_cap builds, holds and times: its template is
+    a kernel of csrc/qim_stripe.cu and a default row of studies/sass.py,
+    its cap's -D a default of that source (K5 has none, so --minb cannot
+    name it), its name a kernel of studies/bounds.py, and its wrapper,
+    called as stripe_cap calls it, gives its plain version's tuple on the
+    CPU."""
+    from stegotpu_torch.studies import bounds, sass
+
+    name, template, fn, define = stripe_cap.KERNELS[key]
+    src = (REPO / "stegotpu_torch" / "csrc" / "qim_stripe.cu").read_text()
+    assert f"\n{template}(" in src and template in sass.DEFAULT_KERNELS
+    if define is None:
+        assert key == "k5" and key not in stripe_cap.CAPPED
+    else:
+        assert f"#ifndef {define}\n#define {define} 8\n" in src
+        assert key in stripe_cap.CAPPED
+    nbytes, flops = bounds.work(name, 2, 48, 240, NUM_AC, 48)
+    assert nbytes > 0 and flops > 0
+    b, h, w = 2, 48, 240
+    frames, payload = _t(_frames(12, b, h, w, 16, 240)), _t(_payload(12, b, h, w))
+    total = b * payload.shape[1] - 13
+    for delta in (DELTA, 2.0**-11):
+        got = fn(frames, payload, total, delta, NUM_AC)
+        want = STRIPE_CAP_PLAIN[key](frames, payload, total, delta, NUM_AC)
+        assert isinstance(got, tuple) and len(got) == len(want)
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
 # --- the studies' entry points ---------------------------------------------------
 
 @pytest.mark.parametrize("mod", [extract_ablation, ab_packed_payload,

@@ -8,18 +8,20 @@ PyTorch built for CUDA:
 
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
-study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu), prints each
-kernel's registers and spills (ptxas) and the opcode counts of K1-K6
-from cuobjdump -sass of the library (failing if the Hopper arithmetic of
-any of them holds a conversion instruction or a shared load), and runs
-fifteen phases:
+study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu, the witness of
+K7 and K8 in qim_kron_smem.cu), prints each kernel's registers and spills
+(ptxas) and the opcode counts of K1-K8 and the witness from cuobjdump
+-sass of the library (failing if the Hopper arithmetic of any of K1-K6
+holds a conversion instruction or a shared load), and runs fifteen
+phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
 4.   every kernel's time and its plain version's, with CUDA events
-     (K1-K8), and the share of their bound that K1-K6 reach;
+     (K1-K8 and the witness of K7 and K8), and the share of their bound
+     that K1-K8 reach (K7's against the separable and the dense form);
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -35,10 +37,15 @@ fifteen phases:
      to file;
 10.  K6 (unpacked fused round trip) against K1, K5 and K4 with zero
      tolerance and against its plain version; K7 and K8 (Kronecker embed
-     and extract) against their plain versions; then the path of the three
-     kernels: the fused and the Kronecker round trips at 1080p with their
-     quality metrics (ops/qim.roundtrip_metrics), the oracle's
+     and extract) against their plain versions, and against their
+     witness (studies/kron_ab.py, their first CUDA version) with zero
+     tolerance at 1080p and 1280x768 (B=8) and on odd shapes, at delta 20
+     and 2^-11, num_ac 1, 10 and 63, payloads full or ending mid-block or
+     mid-frame, bit offset 0 and 13; then the path of the three kernels:
+     the fused and the Kronecker round trips at 1080p with their quality
+     metrics (ops/qim.roundtrip_metrics), the oracle's
      embed_extract_evaluate, and the device PSNR/SSIM against the host's;
+     and the witness's path, the kron_ab study at 1080p B=8 and B=128;
 11.  the study kernels (stegotpu_torch/studies): K9 (the extract with
      stages removed, one entry per variant), K10 (embed from a bit-packed
      payload), K11 (two-chain fused round trip) and K12 (copy, dmaspec)
@@ -93,8 +100,10 @@ that the reading holds host gaps), "bound_ms"/"bound_by" the least time
 an H100 SXM could take for the call at the published peaks
 (studies/bounds.py), "library_ms" the
 time of the one PyTorch call that computes the same function, where there
-is one (Tensor.copy_ for K12 copy; null elsewhere). The last line is
-{"ok": true, "device": {...}}.
+is one (Tensor.copy_ for K12 copy; null elsewhere). The witness rows
+(kron_embed_smem, kron_extract_smem) replace no TPU kernel: their
+"replaces" is null and "study" names the kernel they witness. The last
+line is {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside a checkout that holds stegotpu_torch,
 it exits non-zero and prints no result. It imports only torch, numpy and
@@ -248,6 +257,28 @@ def _sass_counts(lib) -> None:
     check(not bad, f"K1-K6 ArithHopper builds hold slow-pipe instructions: {bad}")
 
 
+# K7, K8 and their witness (studies/kron_ab.py)
+KRON_KERNELS = ("kron_embed_kernel", "kron_extract_kernel",
+                "kron_embed_smem_kernel", "kron_extract_smem_kernel")
+
+
+def _kron_sass(lib, log: str) -> None:
+    """Print the opcode counts of K7, K8 and their witness from cuobjdump
+    -sass of the built library (studies/sass.py), with registers and
+    spills from the build's ptxas report where this run built it."""
+    from stegotpu_torch.studies import sass
+
+    regs = sass.ptxas(log)
+    print("sass kron (cuobjdump -sass of the built library; FFMA, LDS "
+          "shared loads, LDG global loads, BAR barriers, all instructions; "
+          "registers/spill bytes from ptxas): " + "; ".join(
+              f"{r['kernel']} FFMA={r['FFMA']} LDS={r['LDS']} LDG={r['LDG']} "
+              f"BAR={r['BAR']} instructions={r['instructions']} regs="
+              + ("{}/{}".format(*regs[r['kernel']]) if r['kernel'] in regs
+                 else "not built here")
+              for r in sass.rows(lib, KRON_KERNELS)), flush=True)
+
+
 def _time_ms(fns, runs: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, over `runs` calls after warm-up.
     `fns` is a callable or a list of them, one per input set, called in
@@ -312,11 +343,16 @@ def _per_set(fn, sets) -> list:
     return [functools.partial(fn, *s) for s in sets]
 
 
+# the witness kernels (studies/kron_ab.py): they replace no TPU kernel;
+# each computes the function of the kernel it witnesses
+WITNESS = {"kron_embed_smem": "kron_embed", "kron_extract_smem": "kron_extract"}
+
 COUNTERS = {
     "stripe_kernel": ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
                       "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
                       "ROUNDTRIP_ROWS_LAUNCHES"),
     "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
+    "kron_ab": ("KRON_EMBED_SMEM_LAUNCHES", "KRON_EXTRACT_SMEM_LAUNCHES"),
     "extract_ablation": tuple(f"{v.upper()}_LAUNCHES" for v in ABLATIONS),
     "ab_packed_payload": ("PACKEDIN_LAUNCHES",),
     "dualchain_r5": ("DUAL_LAUNCHES",),
@@ -330,9 +366,10 @@ def _counter_modules():
     from stegotpu_torch.ops.experimental import kron_kernel
     from stegotpu_torch.studies import (ab_packed_payload, dualchain_r5,
                                         emitpipe_r4, extract_ablation,
-                                        roofline_r4)
+                                        kron_ab, roofline_r4)
 
     return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel,
+            "kron_ab": kron_ab,
             "extract_ablation": extract_ablation,
             "ab_packed_payload": ab_packed_payload,
             "dualchain_r5": dualchain_r5, "roofline_r4": roofline_r4,
@@ -399,6 +436,7 @@ def main() -> int:
     from stegotpu_torch.ops.experimental import kron_kernel as kk
     from stegotpu_torch.pipeline import (embed_payload_into_gray_frames,
                                          extract_bits_from_gray_frames)
+    from stegotpu_torch.studies import kron_ab
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -416,6 +454,7 @@ def main() -> int:
           f"{' '.join(_build.NVCC_FLAGS)} ptxas {_ptxas_summary(log)}",
           flush=True)
     _sass_counts(_build.library_path())
+    _kron_sass(_build.library_path(), log)
 
     rng = np.random.default_rng(20261016)
     embed_err = 0
@@ -553,9 +592,14 @@ def main() -> int:
         "kron_embed_plain": embed_args(kk.embed_frames_kron_plain),
         "kron_extract": extract_args(kk.extract_frames_kron),
         "kron_extract_plain": extract_args(kk.extract_frames_kron_plain),
+        "kron_embed_smem": embed_args(kron_ab.embed_frames_kron_smem),
+        "kron_extract_smem": extract_args(kron_ab.extract_frames_kron_smem),
     }
     times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
     queued = {k: _queued_ms(_per_set(fn, sets), k) for k, fn in calls.items()}
+    for k in WITNESS:  # the witness's plain version is its kernel's
+        times[f"{k}_plain"] = times[f"{WITNESS[k]}_plain"]
+        queued[f"{k}_plain"] = queued[f"{WITNESS[k]}_plain"]
     _set_counts(counts)  # timing is not a path's run
     cold = (f"rotating over {len(sets)} input sets of "
             f"{sum(f.numel() + p.numel() for f, p, _ in sets) >> 20} MiB")
@@ -575,6 +619,23 @@ def main() -> int:
         print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
               f"device_ms {queued[k]:.4f} bound_ms {bound:.5f} ({by}) share "
               f"{bound / queued[k]:.1%}", flush=True)
+    for k, kn in (("kron_embed", "K7"), ("kron_extract", "K8")):
+        forms = [("", k)] + ([("dense ", "kron_embed_dense")]
+                             if k == "kron_embed" else [])
+        shares = []
+        for form, key in forms:
+            bound, by = bounds.bound_ms(*bounds.work(key, 8, 1080, 1920,
+                                                     NUM_AC, 8))
+            shares.append(f"{form}bound_ms {bound:.5f} ({by}) share "
+                          f"{bound / queued[k]:.1%}")
+        w = f"{k}_smem"
+        print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
+              f"device_ms {queued[k]:.4f} against its witness {w} ms "
+              f"{times[w]:.4f} device_ms {queued[w]:.4f} "
+              f"({queued[w] / queued[k]:.2f}x); " + "; ".join(shares)
+              + (" (the separable transform's work, and the dense form's "
+                 "that K7 computes)" if k == "kron_embed" else ""),
+              flush=True)
 
     # phase 5: file to file, where the host libraries are installed
     libs = {m: importlib.util.find_spec(m) is not None
@@ -635,7 +696,9 @@ def main() -> int:
                 "dmaspec": ((study, "benchmarks/roofline_r4.py"), 149),
                 **{f"roundtrip_pipe_buf{n}": (
                     ("stegotpu_torch/csrc/qim_pipe.cu",
-                     "benchmarks/emitpipe_r4.py"), 119) for n in (2, 3, 4)}}
+                     "benchmarks/emitpipe_r4.py"), 119) for n in (2, 3, 4)},
+                **{k: (("stegotpu_torch/csrc/qim_kron_smem.cu", None), None)
+                   for k in WITNESS}}
     errs.update(embed=embed_err, extract_packed=extract_err)
     kernels = []
     for k, ((source, tpu_file), line) in replaces.items():
@@ -643,17 +706,20 @@ def main() -> int:
         # timed calls, 1920x1080, B=8, num_ac=10, every block entered
         bound, bound_by = bounds.bound_ms(*bounds.work(
             k, 8, 1080, 1920, NUM_AC, sk.pick_stripe(1080)))
+        plain = ("K13 plain" if k.startswith("roundtrip_pipe")
+                 else f"{WITNESS.get(k, k)}_plain")
         kernels.append({
             "name": k, "route": "cuda", "source": source,
-            "replaces": f"{tpu_file}:{line}",
+            "replaces": f"{tpu_file}:{line}" if tpu_file else None,
             "launches": launches[k], "max_abs_err": errs[k],
             "ms": times[k], "plain_ms": times[f"{k}_plain"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library.get(k),
             "device_ms": _device_ms(k, queued[k]),
-            "plain_device_ms": _device_ms(
-                "K13 plain" if k.startswith("roundtrip_pipe") else f"{k}_plain",
-                queued[f"{k}_plain"])})
+            "plain_device_ms": _device_ms(plain, queued[f"{k}_plain"]),
+            **({"study": f"witness of {WITNESS[k]}: its first CUDA version, "
+                         "held to it byte for byte; replaces no TPU kernel"}
+               if k in WITNESS else {})})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
     from stegotpu_torch.studies import harness
@@ -1064,9 +1130,11 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
     kernels: the fused (K6) and Kronecker (K7 + K8) round trips at 1080p,
     B=8, scored by roundtrip_metrics, then the oracle's
     embed_extract_evaluate and the device PSNR/SSIM against the host's.
+    K7 and K8 are held to their witness with zero tolerance too
+    (_kron_witness), which then runs its own path, the kron_ab study.
     Returns each kernel's max_abs_err (largest stego pixel difference for
-    K6 and K7; 1 if a K8 bit differed outside the envelope) and its
-    launches on the path."""
+    K6, K7 and K7's witness; 1 if a K8 bit, or its witness's, differed
+    outside the envelope) and its launches on the path."""
     import numpy as np
     import torch
 
@@ -1075,8 +1143,10 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
     from stegotpu_torch.ops import stripe_kernel as sk
     from stegotpu_torch.ops.experimental import kron_kernel as kk
     from stegotpu_torch.ops.experimental.qim_fast import build_state_plane
+    from stegotpu_torch.studies import kron_ab
 
-    errs = {"roundtrip_rows": 0, "kron_embed": 0, "kron_extract": 0}
+    errs = {"roundtrip_rows": 0, "kron_embed": 0, "kron_extract": 0,
+            "kron_embed_smem": 0, "kron_extract_smem": 0}
     for (h, w) in ((1080, 1920), (768, 1360)):
         for cover in ("mid", "uniform"):
             frames, payload, total = _covers(dev, rng, 8, h, w, cover)
@@ -1131,11 +1201,14 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
             args = (frames, payload, total, DELTA, NUM_AC, offset)
             s7, bpf7 = kk.embed_frames_kron(*args)
             s7p, bpf7p = kk.embed_frames_kron_plain(*args)
+            s7w, _ = kron_ab.embed_frames_kron_smem(*args)
             torch.cuda.synchronize()
             check(torch.equal(bpf7, bpf7p), f"K7 bpf differ at {h}x{w}")
             d = (s7.to(torch.int32) - s7p.to(torch.int32)).abs()
             flips = (d > 1).double().mean().item()
             errs["kron_embed"] = max(errs["kron_embed"], int(d.max()))
+            errs["kron_embed_smem"] = max(errs["kron_embed_smem"], int(
+                (s7w.to(torch.int32) - s7p.to(torch.int32)).abs().max()))
             check(flips < STEGO_FLIP_BUDGET,
                   f"K7 vs plain: {flips:.4%} of pixels differ by >1 at {h}x{w}")
             never = build_state_plane(payload, total, h, w, NUM_AC,
@@ -1145,9 +1218,15 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
             counts = []
             for x in (frames, s7):
                 b8 = kk.extract_frames_kron(x, DELTA, NUM_AC)
-                diff = b8 != kk.extract_frames_kron_plain(x, DELTA, NUM_AC)
-                outside = int((diff & ~_near_boundary_t(x, DELTA, NUM_AC)).sum())
+                b8p = kk.extract_frames_kron_plain(x, DELTA, NUM_AC)
+                diff = b8 != b8p
+                far = ~_near_boundary_t(x, DELTA, NUM_AC)
+                outside = int((diff & far).sum())
                 errs["kron_extract"] = max(errs["kron_extract"], int(outside > 0))
+                errs["kron_extract_smem"] = max(
+                    errs["kron_extract_smem"], int(bool(
+                        ((kron_ab.extract_frames_kron_smem(x, DELTA, NUM_AC)
+                          != b8p) & far).any())))
                 check(outside == 0, f"K8 vs plain: {outside} bits outside the "
                       f"envelope at {h}x{w} ({cover})")
                 counts.append(int(diff.sum()))
@@ -1205,7 +1284,70 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
           f"KRON_EMBED_LAUNCHES={launches['kron_embed']} "
           f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']}; {seconds:.3f} s "
           "host clock", flush=True)
+    launches.update(_kron_witness(dev, rng))
     return errs, launches
+
+
+# phase 10's shapes of K7/K8 against their witness (B, H, W): 1080p and
+# 768p at B=8, then odd ones: B=1 at 1080p (126.6 tiles of 256 blocks),
+# 720p and the smallest frame the kernels take (8x128, 16 blocks), and a
+# batch of 720 blocks whose frames straddle tiles
+KRON_WITNESS_SHAPES = [(8, 1080, 1920), (8, 768, 1280), (1, 1080, 1920),
+                       (1, 720, 1280), (1, 8, 128), (3, 40, 384)]
+
+
+def _kron_witness(dev, rng) -> dict[str, int]:
+    """K7 and K8 against their witness (studies/kron_ab.py, their first
+    CUDA version) with zero tolerance: stego, bits per frame and K8's bits
+    of the cover and the stego, on KRON_WITNESS_SHAPES at delta 20 and
+    2^-11, num_ac 1, 10 and 63, payloads filling every slot or ending
+    mid-block or mid-frame, at bit offsets 0 and 13. Then the witness's
+    path, the kron_ab study at 1080p, B=8 and 128. Returns the witness's
+    launches on that path."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.studies import kron_ab
+
+    for b, h, w in KRON_WITNESS_SHAPES:
+        frames = torch.from_numpy(
+            rng.integers(16, 240, (b, h, w), dtype=np.uint8)).to(dev)
+        checked = 0
+        for num_ac in (1, 10, 63):
+            cap = (h // 8) * (w // 8) * num_ac
+            payload = torch.from_numpy(
+                rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
+            ends = {"full": b * cap, "mid-block": b * cap - num_ac // 2 - 1,
+                    "mid-frame": cap // 2 + 3}
+            for delta in (DELTA, 2.0**-11):
+                for end, n in ends.items():
+                    for offset in (0, 13):
+                        check(kron_ab.same_bytes(frames, payload, offset + n,
+                                                 delta, num_ac, offset),
+                              f"K7/K8 != their witness at B={b} {h}x{w} "
+                              f"num_ac={num_ac} delta {delta} payload {end} "
+                              f"offset {offset}")
+                        checked += 1
+        print(f"phase 10 K7/K8 == witness B={b} {h}x{w}: stego, bpf and K8 "
+              f"bits of cover and stego byte for byte in {checked} cases "
+              "(num_ac 1/10/63, delta 20 and 2^-11, payload full, ending "
+              "mid-block or mid-frame, offset 0 and 13)", flush=True)
+    _set_counts()
+    rows = _run_main("kron_ab", kron_ab.main, ["--iters", "10"], phase=10)
+    launches = {"kron_embed_smem": kron_ab.KRON_EMBED_SMEM_LAUNCHES,
+                "kron_extract_smem": kron_ab.KRON_EXTRACT_SMEM_LAUNCHES}
+    check(all(r["ok"] for r in rows if "check" in r),
+          f"kron_ab: K7/K8 != their witness: {rows}")
+    check(all(v > 0 for v in launches.values()),
+          f"the kron_ab study did not launch the witness: {launches}")
+    print("phase 10 kron_ab path: " + ", ".join(
+        f"{r['kernel']} B={r['batch']} {r['new_ms']:.4f} ms against the "
+        f"witness's {r['witness_ms']:.4f} ({r['speedup']:.2f}x)"
+        for r in rows if "kernel" in r)
+        + f"; KRON_EMBED_SMEM_LAUNCHES={launches['kron_embed_smem']} "
+        f"KRON_EXTRACT_SMEM_LAUNCHES={launches['kron_extract_smem']}",
+        flush=True)
+    return launches
 
 
 def _ablation_near(frames, delta: float, num_ac: int, stripe: int):

@@ -20,7 +20,11 @@ from the bit indices, so the tests hold its state logic against the plane.
 This is another rounding path than the stripe kernels' sparse delta, so no
 zero-tolerance identity with K1 holds: K7 and K8 are held against their
 plain versions and the oracle under the exactness envelope and the stego
-flip budget.
+flip budget. Against their first CUDA version, which studies/kron_ab.py
+keeps as their witness (csrc/qim_kron_smem.cu), they are held byte for
+byte: the redesign for Hopper (persistent CTAs that load K64 once, 8x8
+register micro-tiles; K8 on its slot rows only, one thread a block) keeps
+every output's fmaf chain in the same order.
 
 The domain is the JAX function's: W % 128 == 0 (pallas_kron.py:102,145),
 else ValueError. delta <= 0 raises ValueError here; the JAX kernel has no
@@ -115,23 +119,25 @@ def embed_frames_kron(frames: torch.Tensor, payload_bits: torch.Tensor,
     uint8 0/1 in wire order, C = (H/8)*(W/8)*num_ac; frame i consumes global
     bit indices [bit_offset + i*C, bit_offset + (i+1)*C), and total_bits
     (global) marks the payload end. Returns (stego (B, H, W) uint8, bits per
-    frame (B,) int32) on the frames' device."""
+    frame (B,) int32) on the frames' device; on the card both come from the
+    one kernel launch."""
     global KRON_EMBED_LAUNCHES
     b, h, w = _check_domain(frames, delta)
-    cap = _check_payload(payload_bits, frames, num_ac)
+    _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
         return embed_frames_kron_plain(frames, payload_bits, total_bits,
                                        delta, num_ac, bit_offset)
     stego = torch.empty_like(frames)
-    if stego.numel():
-        dev = frames.device
-        _launch("stegotpu_kron_embed", frames.data_ptr(),
-                payload_bits.data_ptr(), stego.data_ptr(),
-                _kron_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                int(total_bits), int(bit_offset), float(delta), _stream(dev))
-        KRON_EMBED_LAUNCHES += 1
-    return stego, _bits_per_frame(b, cap, int(total_bits), int(bit_offset),
-                                  frames.device)
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32, device=frames.device)
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    _launch("stegotpu_kron_embed", frames.data_ptr(), payload_bits.data_ptr(),
+            stego.data_ptr(), bpf.data_ptr(), _kron_on(dev).data_ptr(),
+            dev.index, b, h, w, num_ac, int(total_bits), int(bit_offset),
+            float(delta), _stream(dev))
+    KRON_EMBED_LAUNCHES += 1
+    return stego, bpf
 
 
 def extract_frames_kron(frames: torch.Tensor, delta: float,

@@ -6,10 +6,10 @@ output written once (the transform matrix and the wrapper's small outputs,
 such as bits per frame, included), and the f32 operations of its
 transforms, two per FMA, counted for the separable 8-point DCT, the least
 work of the function (K7 does the Kronecker form's dense 64x64 product,
-four times as many). The bound is the larger of bytes over the HBM rate
-and operations over the f32 rate outside the tensor cores, at the
-published peaks of the NVIDIA H100 SXM (NVIDIA's data sheet; they assume
-the full 700 W power limit).
+four times as many: the key ``kron_embed_dense`` counts those). The bound
+is the larger of bytes over the HBM rate and operations over the f32 rate
+outside the tensor cores, at the published peaks of the NVIDIA H100 SXM
+(NVIDIA's data sheet; they assume the full 700 W power limit).
 """
 
 from __future__ import annotations
@@ -26,8 +26,11 @@ _TRANSFORMS = {
     "ablation_full": 1, "ablation_no_qim": 1, "ablation_full_notrunc": 1,
 }
 
-# K13 computes K4's function through a ring of 2, 3 or 4 tiles: K4's work
-_SAME_WORK = {f"roundtrip_pipe_buf{n}": "roundtrip_packed" for n in (2, 3, 4)}
+# K13 computes K4's function through a ring of 2, 3 or 4 tiles: K4's work;
+# the witnesses of K7 and K8 (studies/kron_ab.py) compute theirs
+_SAME_WORK = {**{f"roundtrip_pipe_buf{n}": "roundtrip_packed" for n in (2, 3, 4)},
+              "kron_embed_smem": "kron_embed",
+              "kron_extract_smem": "kron_extract"}
 
 
 def work(kernel: str, b: int, h: int, w: int, num_ac: int,
@@ -55,6 +58,7 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         "extract_packed": pixels + dct + packed,
         "extract_rows": pixels + dct + rows,
         "kron_embed": embed - dct + kron,
+        "kron_embed_dense": embed - dct + kron,
         "kron_extract": pixels + kron + payload,
         "ablation_full": pixels + dct + rows,
         "ablation_no_qim": pixels + dct + rows,
@@ -69,6 +73,7 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         # forward + inverse of the whole block, separable: two passes of
         # 8x64 FMAs each (K7 itself does the dense 64x64 product, 4x this)
         "kron_embed": blocks * 2 * 2 * 2 * 8 * 64,
+        "kron_embed_dense": blocks * 2 * 2 * 64 * 64,  # the form K7 computes
         "kron_extract": blocks * 2 * 64 * num_ac,  # the slot rows only
         "ablation_no_horiz": blocks * 2 * rn * 64,  # the vertical pass
         "ablation_io_only": rows,                  # one multiply a byte

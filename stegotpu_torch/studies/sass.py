@@ -7,7 +7,8 @@ FRND: the conversion pipe, 16 results a clock an SM by the CUDA C++
 Programming Guide's throughput table, against 128 for FFMA/FADD and 64 for
 the integer ALU), the multi-function unit (MUFU: the divide's reciprocal),
 the divide's range check (FCHK), shared-memory loads (LDS: the DCT matrix
-where a kernel keeps it there), byte permutes (PRMT) and the FMAs (FFMA;
+where a kernel keeps it there), global loads (LDG) and barriers (BAR),
+byte permutes (PRMT) and the FMAs (FFMA;
 ``FFMA_imm``: those with an immediate float operand, where the compiler
 folded the DCT matrix's constant into the instruction; ``FFMA_cbank``:
 those that read an operand from a constant bank other than the
@@ -16,7 +17,8 @@ parameters' bank 0).
     python -m stegotpu_torch.studies.sass [--lib PATH] [--kernels a,b]
 
 prints one JSON row per matching instantiation (default: K1-K6, the
-stripe kernels, at rn=2). ``--lib`` reads another
+stripe kernels, at rn=2; a kernel that is no template, such as K7's
+``kron_embed_kernel``, matches as it is). ``--lib`` reads another
 build of the library, e.g. a parent checkout's. It needs the CUDA
 toolkit's ``cuobjdump``, not a card.
 """
@@ -38,7 +40,8 @@ DEFAULT_KERNELS = ("qim_embed_kernel", "qim_extract_packed_kernel",
                    "qim_embed_check_kernel", "qim_roundtrip_packed_kernel",
                    "qim_extract_rows_kernel", "qim_roundtrip_rows_kernel")
 REPORTED = ("I2F", "I2FP", "F2I", "F2F", "FRND", "MUFU", "FCHK", "LDS",
-            "LDC", "PRMT", "FADD", "FFMA", "FFMA_imm", "FFMA_cbank")
+            "LDC", "LDG", "BAR", "PRMT", "FADD", "FFMA", "FFMA_imm",
+            "FFMA_cbank")
 
 _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 _FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
@@ -162,11 +165,12 @@ def ptxas(log: str) -> dict[str, tuple[int, int]]:
 
 def rows(lib: Path, kernels=DEFAULT_KERNELS, rn: int = 2) -> list[dict]:
     """One row per instantiation at `rn` of each kernel template named in
-    `kernels`: its label and the REPORTED counts (0 where absent)."""
+    `kernels`, or per kernel of that name that is no template: its label
+    and the REPORTED counts (0 where absent)."""
     out = []
     for mangled, lines in sorted(split_functions(dump(lib)).items()):
         for k in kernels:
-            if f"{len(k)}{k}ILi{rn}E" in mangled:
+            if re.search(rf"{len(k)}{k}(?:ILi{rn}E|E)", mangled):
                 c = counts(lines)
                 out.append({"kernel": label(mangled),
                             **{op: c.get(op, 0) for op in REPORTED},

@@ -512,6 +512,43 @@ def test_kron_wrappers_keep_the_domain(dev):
     assert (kk.KRON_EMBED_LAUNCHES, kk.KRON_EXTRACT_LAUNCHES) == before
 
 
+@pytest.mark.parametrize("delta", [20.0, 2.0**-11])
+@pytest.mark.parametrize("num_ac", [1, 10, 63])
+@pytest.mark.parametrize("b,h,w", [(1, 1080, 1920), (1, 720, 1280),
+                                   (1, 8, 128), (3, 40, 384)])
+def test_kron_kernels_match_witness(dev, b, h, w, num_ac, delta):
+    """K7 and K8 against their witness (studies/kron_ab.py, their first
+    CUDA version) with zero tolerance: stego, bits per frame and K8's bits
+    of the cover and of the stego, for payloads filling every slot and
+    ending mid-block and mid-frame, at a bit offset. B=1 at 1080p is
+    126.6 tiles of 256 blocks; 3x40x384 is 720 blocks, frames straddling
+    tiles."""
+    from stegotpu_torch.ops.experimental import kron_kernel as kk
+    from stegotpu_torch.studies import kron_ab
+
+    rng = np.random.default_rng(17)
+    frames = torch.from_numpy(rng.integers(16, 240, (b, h, w), np.uint8)).to(dev)
+    cap = (h // 8) * (w // 8) * num_ac
+    payload = torch.from_numpy(rng.integers(0, 2, (b, cap), np.uint8)).to(dev)
+    before = (kron_ab.KRON_EMBED_SMEM_LAUNCHES,
+              kron_ab.KRON_EXTRACT_SMEM_LAUNCHES)
+    for n in (b * cap, b * cap - num_ac // 2 - 1, cap // 2 + 3):
+        total = OFFSET + n
+        s7, bpf7 = kk.embed_frames_kron(frames, payload, total, delta, num_ac,
+                                        OFFSET)
+        sw, bpfw = kron_ab.embed_frames_kron_smem(frames, payload, total,
+                                                  delta, num_ac, OFFSET)
+        torch.cuda.synchronize()
+        assert torch.equal(s7, sw) and torch.equal(bpf7, bpfw)
+        for x in (frames, s7):
+            assert torch.equal(kk.extract_frames_kron(x, delta, num_ac),
+                               kron_ab.extract_frames_kron_smem(x, delta,
+                                                                num_ac))
+    assert (kron_ab.KRON_EMBED_SMEM_LAUNCHES,
+            kron_ab.KRON_EXTRACT_SMEM_LAUNCHES) == (before[0] + 3,
+                                                    before[1] + 6)
+
+
 def test_metrics_on_card(dev):
     """roundtrip_metrics reads 0 bit errors on the K6 and kron round trips
     of a mid-range cover; embed_extract_evaluate runs on the card; the
@@ -642,12 +679,12 @@ def test_study_mains_on_card(dev, capsys):
 
     from stegotpu_torch.studies import (ab_packed_payload, device_roofline,
                                         dualchain_r5, extract_ablation,
-                                        roofline_r4)
+                                        kron_ab, roofline_r4)
 
     argv = ["--batch", "4", "--iters", "2", "--height", "144", "--width",
             "256"]
     for mod in (extract_ablation, ab_packed_payload, dualchain_r5,
-                roofline_r4, device_roofline):
+                roofline_r4, device_roofline, kron_ab):
         rc = mod.main(argv)
         rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
         assert rows[0]["device"] == torch.cuda.get_device_name(0)

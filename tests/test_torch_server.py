@@ -475,22 +475,29 @@ def test_runtime_error_is_a_500_and_not_retried(server, tmp_path, monkeypatch):
 
 def test_body_guards_match_jax(both):
     """A body over the 1 MiB cap is a 413 and a negative Content-Length a
-    400, before any body is read, on both servers."""
+    400, before any body is read, on both servers.
+
+    Both requests send their headers only: a server that answers 413 and
+    closes without reading the body would make a client still sending one
+    hit a broken pipe before it reads the reply."""
     import http.client
     from urllib.parse import urlsplit
 
-    for base in both:
-        code, out = _post(base, "/inspect", None, raw=b" " * ((1 << 20) + 1))
-        assert code == 413 and "too large" in out["error"]
+    def headers_only(base, length):
         u = urlsplit(base)
         conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
         try:
             conn.putrequest("POST", "/inspect")
             conn.putheader("Content-Type", "application/json")
-            conn.putheader("Content-Length", "-1")
+            conn.putheader("Content-Length", length)
             conn.endheaders()
             r = conn.getresponse()
-            assert r.status == 400
-            assert "Content-Length" in json.loads(r.read())["error"]
+            return r.status, json.loads(r.read())
         finally:
             conn.close()
+
+    for base in both:
+        code, out = headers_only(base, str((1 << 20) + 1))
+        assert code == 413 and "too large" in out["error"]
+        code, out = headers_only(base, "-1")
+        assert code == 400 and "Content-Length" in out["error"]

@@ -10,10 +10,10 @@ It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
 study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu, the witness of
 K7 and K8 in qim_kron_smem.cu), prints each kernel's registers and spills
-(ptxas) and the opcode counts of K1-K8 and the witness from cuobjdump
--sass of the library (failing if the Hopper arithmetic of any of K1-K6
-holds a conversion instruction or a shared load), and runs fifteen
-phases:
+(ptxas) and the opcode counts of K1-K8, K11, K13 and the witness from
+cuobjdump -sass of the library (failing if the Hopper arithmetic of any
+of K1-K6, K11 and K13 holds a conversion instruction or a shared load
+beyond what its layout and its ring need), and runs fifteen phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -50,18 +50,20 @@ phases:
      stages removed, one entry per variant), K10 (embed from a bit-packed
      payload), K11 (two-chain fused round trip) and K12 (copy, dmaspec)
      against K5, K1, K4, the frames and payload_to_rows_packed with zero
-     tolerance and against their plain versions; their times; then the path
-     of the four kernels: every study's main at 1080p, and one roofline
-     pass at B=128 (a working set far beyond the 50 MB L2); the device
-     timeline must show a K1 or K4 call as one kernel and nothing else,
-     and a K3 call as its kernel behind at most one memset;
+     tolerance (K11 at delta 20 and 2^-11) and against their plain
+     versions; their times; then the path of the four kernels: every
+     study's main at 1080p, and one roofline pass at B=128 (a working set
+     far beyond the 50 MB L2); the device timeline must show a K1, K4,
+     K11 or K13 call as one kernel and nothing else, and a K3 call as its
+     kernel behind at most one memset;
 12.  K13 (the fused round trip through a cp.async ring of 2, 3 or 4 tiles)
-     against K4 with zero tolerance at 1080p and 768p (B=8), at the
-     study's 1080p B=128 and on odd shapes, some at batches where the
-     ring wraps many times, and against its plain version; its times and
-     its plain version's; then its path: the emitpipe_r4 study at B=128
-     for each ring depth, with and without the register cap, and the
-     roofline's fused_buf3/4;
+     against K4 with zero tolerance at 1080p and 768p (B=8) at delta 20
+     and 2^-11, at the study's 1080p B=128 and on odd shapes, capped and
+     not, some at batches where the ring wraps many times, K11 beside it
+     where B is even, and against its plain version; K13 at each ring depth beside
+     K4 at B=128 in one line; its times and its plain version's; then its
+     path: the emitpipe_r4 study at B=128 for each ring depth, with and
+     without the register cap, and the roofline's fused_buf3/4;
 13.  the command line at full width (stegotpu_torch.cli, in process):
      fixtures, genkey, embed, extract, inspect, steganalyze, capacity,
      evaluate, selftest and bench on a 1920x1080 cover;
@@ -174,10 +176,10 @@ def _ptxas_summary(log: str) -> str:
     or the only rn a kernel has) and the largest over rn=1..8, with one
     entry per K9 variant ('ablation_no_qim<2>:...'), per K13 ring depth,
     capped and not ('roundtrip_pipe_buf2_uncapped<2>:...'), and per K1-K6
-    arithmetic and register cap ('extract_packed<2>' the Hopper
+    and K11 arithmetic and register cap ('extract_packed<2>' the Hopper
     arithmetic, 'embed_minb8<2>' K1's with __launch_bounds__(128, 8) at
     rn <= 2, 'embed<3>' without the cap above, 'embed_small_delta_minb8<2>'
-    the build for delta < 2^-10);
+    the build for delta < 2^-10; K13's 'roundtrip_pipe_buf2_small_delta');
     'kron_embed:64r/0s' and 'copy:16r/0s' for the kernels with one
     instantiation."""
     from stegotpu_torch.studies import sass
@@ -192,9 +194,10 @@ def _ptxas_summary(log: str) -> str:
         rn = int(args[0]) if args and kind != "copy" else 0
         if kind == "copy":  # copy_kernel<V>: V is the variant
             name = ("copy", "dmaspec")[int(args[0])]
-        elif kind == "roundtrip_pipe":  # <RN, BUFS, MINB>
-            name = f"roundtrip_pipe_buf{args[1]}"
-            if rn <= 2 and args[2] == "1":  # the build without the cap
+        elif kind == "roundtrip_pipe":  # <RN, Arith, BUFS, MINB>
+            name = f"roundtrip_pipe_buf{args[2]}" + (
+                "_small_delta" if args[1].endswith("SmallDelta") else "")
+            if rn <= 2 and args[3] == "1":  # the build without the cap
                 name += "_uncapped"
         elif kind == "ablation":  # <RN, V>
             name = f"ablation_{ABLATIONS[int(args[1])]}"
@@ -255,6 +258,65 @@ def _sass_counts(lib) -> None:
         if over:
             bad[r["kernel"]] = over
     check(not bad, f"K1-K6 ArithHopper builds hold slow-pipe instructions: {bad}")
+
+
+# K11 and K13, K4's spelling in two study kernels: their ArithHopper builds
+# hold no FRND or I2FP, K11 (K4 with two chains) at most K4's one I2F and
+# one F2I (SLOW_PIPE_LEFT) and no LDS. K13 reads each tile from its ring in
+# shared memory (8 row loads and up to 15 payload bytes a block, LDS, in a
+# copy of the loop body per ring slot that ptxas unrolls, so the count
+# grows with the ring's depth) and decomposes its first tile and the grid
+# stride by the column chunks and the block rows (TileWalk.start in
+# csrc/qim_pipe.cu: two 32-bit divisions, an I2F and an F2I each) besides
+# group_row's stripe division; these are the counts of its builds at rn=2
+# by ring depth (the BUFS template argument), capped or not.
+STUDY_SASS_LEFT = {
+    "qim_roundtrip_dual_kernel": SLOW_PIPE_LEFT["qim_roundtrip_packed_kernel"],
+    "qim_roundtrip_pipe_kernel": {
+        bufs: {"I2F": 3, "F2I": 3, "LDS": lds}
+        for bufs, lds in ((2, 143), (3, 239), (4, 311))},
+}
+
+
+def _study_left(kernel: str) -> dict:
+    """STUDY_SASS_LEFT's allowance of a K11 or K13 build, by its label
+    ('qim_roundtrip_pipe_kernel<2, ArithHopper, 3, 7>': ring depth 3)."""
+    name, _, args = kernel.partition("<")
+    left = STUDY_SASS_LEFT[name]
+    if name == "qim_roundtrip_pipe_kernel":
+        left = left[int(args.split(",")[2])]
+    return left
+
+
+def _study_sass(lib, log: str) -> None:
+    """Print the opcode counts of K11 and K13 (rn=2, every build) from
+    cuobjdump -sass of the built library, with registers and spills from
+    the build's ptxas report where this run built it, and fail if an
+    ArithHopper build holds an FRND or I2FP, or a conversion or shared load
+    beyond STUDY_SASS_LEFT."""
+    from stegotpu_torch.studies import sass
+
+    regs = sass.ptxas(log)
+    rows = sass.rows(lib, tuple(STUDY_SASS_LEFT))
+    print("sass K11/K13 (cuobjdump -sass of the built library, rn=2; "
+          "registers/spill bytes from ptxas): " + "; ".join(
+              f"{r['kernel']} " + " ".join(
+                  f"{k}={r[k]}" for k in ("I2F", "I2FP", "F2I", "FRND", "LDS",
+                                          "FFMA", "BAR", "instructions"))
+              + " regs=" + ("{}/{}".format(*regs[r['kernel']])
+                            if r['kernel'] in regs else "not built here")
+              for r in rows), flush=True)
+    fast = [r for r in rows if re.search(r", ArithHopper\b", r["kernel"])]
+    check({r["kernel"].split("<")[0] for r in fast} == set(STUDY_SASS_LEFT),
+          f"no ArithHopper build of K11 or K13: {rows}")
+    bad = {}
+    for r in fast:
+        left = _study_left(r["kernel"])
+        over = {k: r[k] for k in NO_SLOW_PIPE if r[k] > left.get(k, 0)}
+        if over:
+            bad[r["kernel"]] = over
+    check(not bad, f"K11/K13 ArithHopper builds hold slow-pipe instructions "
+          f"beyond STUDY_SASS_LEFT: {bad}")
 
 
 # K7, K8 and their witness (studies/kron_ab.py)
@@ -454,6 +516,7 @@ def main() -> int:
           f"{' '.join(_build.NVCC_FLAGS)} ptxas {_ptxas_summary(log)}",
           flush=True)
     _sass_counts(_build.library_path())
+    _study_sass(_build.library_path(), log)
     _kron_sass(_build.library_path(), log)
 
     rng = np.random.default_rng(20261016)
@@ -1405,7 +1468,8 @@ def _studies(dev, rng, gpu: str, sets: list):
 
     At 1920x1080 and 1360x768, B=8, on the mid and uniform covers, the
     zero-tolerance identities K9 full == K5, K10 == K1, K11 == K4 (stego,
-    bits per frame, packed), K12 copy == frames and dmaspec's packed ==
+    bits per frame, packed; at delta 20 and 2^-11), K12 copy == frames
+    and dmaspec's packed ==
     payload_to_rows_packed, and every kernel against its plain version:
     full, full_notrunc and K11's bits within the exactness envelope,
     no_horiz's bits within it on the vertical coefficients, no_qim's bytes
@@ -1417,8 +1481,8 @@ def _studies(dev, rng, gpu: str, sets: list):
     study's main at 1080p with a small batch and iteration count, and one
     roofline pass at B=128, with the launch counters set to 0 before and
     read after; device_roofline's timeline must show a K1 or K4 call as
-    one kernel, and a K3 call must be its kernel behind at most one
-    memset.
+    one kernel, a K3 call must be its kernel behind at most one memset,
+    and a K11 and a K13 call one kernel each with nothing beside it.
 
     Returns (max_abs_err, launches on the path, per-call ms, queued ms,
     library ms) by kernel name."""
@@ -1508,11 +1572,15 @@ def _studies(dev, rng, gpu: str, sets: list):
             check(torch.equal(bpf10, bpf10p) and flips10 < STEGO_FLIP_BUDGET,
                   f"K10 vs plain: {flips10:.4%} px differ by >1 at {h}x{w}")
 
-            # K11 against K4 and its plain version
-            s4, bpf4, p4 = sk.embed_and_extract_frames_packed(*args)
-            s11, bpf11, p11 = dc.dual_roundtrip_packed(*args)
-            check(torch.equal(s11, s4) and torch.equal(bpf11, bpf4)
-                  and torch.equal(p11, p4), f"K11 != K4 at {h}x{w} ({cover})")
+            # K11 against K4 (both spellings: delta 2^-11 takes
+            # ArithHopperSmallDelta) and its plain version
+            for d in (2.0**-11, DELTA):
+                a = (frames, payload, total, d, NUM_AC)
+                s4, bpf4, p4 = sk.embed_and_extract_frames_packed(*a)
+                s11, bpf11, p11 = dc.dual_roundtrip_packed(*a)
+                check(torch.equal(s11, s4) and torch.equal(bpf11, bpf4)
+                      and torch.equal(p11, p4),
+                      f"K11 != K4 at {h}x{w} ({cover}) delta {d}")
             s11p, bpf11p, _ = dc.dual_roundtrip_packed_plain(*args)
             torch.cuda.synchronize()
             d11 = (s11.to(torch.int32) - s11p.to(torch.int32)).abs()
@@ -1541,7 +1609,8 @@ def _studies(dev, rng, gpu: str, sets: list):
                   + ", ".join(notes) + "; K10 == K1 (stego, bpf) byte for "
                   f"byte, vs plain >1 px {flips10:.5%} max |diff| "
                   f"{int(d10.max())}; K11 == K4 (stego, bpf, packed) byte for "
-                  f"byte, vs plain >1 px {flips11:.5%}, bits within the "
+                  f"byte at delta 20 and 2^-11, vs plain >1 px "
+                  f"{flips11:.5%}, bits within the "
                   "envelope; K12 copy == frames, dmaspec == (frames, "
                   "payload_to_rows_packed)", flush=True)
 
@@ -1647,6 +1716,26 @@ def _studies(dev, rng, gpu: str, sets: list):
           f"call behind {glue.get('gpu_memset', 0):g} memset (kernel "
           f"{k3['kernel_ms_each']:.4f} ms, period "
           f"{k3.get('iter_period_ms') or float('nan'):.4f} ms)", flush=True)
+    # a K11 and a K13 call: one kernel each, with no torch op beside it
+    # (each writes its bits per frame itself)
+    from stegotpu_torch.studies import emitpipe_r4
+
+    counts = _counts()
+    total = payload.numel()
+    for kn, template, fn in (
+            ("K11", "qim_roundtrip_dual_kernel", dc.dual_roundtrip_packed),
+            ("K13", "qim_roundtrip_pipe_kernel",
+             emitpipe_r4.roundtrip_pipelined_packed)):
+        row = stripe_cap.timeline(lambda fn=fn: fn(frames, payload, total,
+                                                   DELTA, NUM_AC), iters=5)
+        check(template in (row["kernel_name"] or "")
+              and not row["glue_per_iter"],
+              f"device timeline: a {kn} call is more than its kernel: {row}")
+        print(f"phase 11 device timeline {kn} B=8: one {template} a call, no "
+              f"glue (kernel {row['kernel_ms_each']:.4f} ms, period "
+              f"{row.get('iter_period_ms') or float('nan'):.4f} ms)",
+              flush=True)
+    _set_counts(counts)
     print("phase 11 study launches: "
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return errs, launches, times, queued, library
@@ -1679,14 +1768,17 @@ def _pipe(dev, rng, gpu: str, sets: list):
     """Phase 12: K13 (studies/emitpipe_r4, csrc/qim_pipe.cu).
 
     At 1920x1080 and 1360x768, B=8, on both covers, K13 at bufs 2, 3 and 4
-    equals K4 byte for byte (stego, bits per frame, packed bits), and is
-    held against its plain version (K4's) as K4 is in phase 6: stego within
-    the flip budget, bits within the exactness envelope. At the path's own
-    input (the study's 1080p, B=128, where each CTA walks some 65 tiles) it
-    equals K4 byte for byte at every bufs, with and without its register
-    cap. On the odd shapes, with frames 8 bytes and payloads 1-3 bytes off
-    16-byte alignment and at delta 20, 8, 0 and -4, it equals K4 byte for
-    byte. Its times and its plain version's at 1920x1080, B=8, rotating
+    equals K4 byte for byte (stego, bits per frame, packed bits) at delta
+    20 and 2^-11, and is held against its plain version (K4's) as K4 is in
+    phase 6: stego within the flip budget, bits within the exactness
+    envelope. At the path's own input (the study's 1080p, B=128, where each
+    CTA walks some 65 tiles) it equals K4 byte for byte at every bufs, with
+    and without its register cap, and so does K11, at delta 20 and 2^-11;
+    then K13 at each bufs and K4 are timed there, queued, and printed in
+    one line. On the odd shapes, with frames 8 bytes and payloads 1-3
+    bytes off 16-byte alignment and at delta 20, 8, 2^-11, 0 and -4, K13
+    (capped and not at 20 and 2^-11) and, at an even B, K11 equal K4 byte
+    for byte. Its times and its plain version's at 1920x1080, B=8, rotating
     over phase 4's input `sets`, per call and queued. Then the path,
     counters set to 0 before and read after: the study's main at B=128 for
     each bufs, capped and not, and roofline_r4's fused_buf3 and fused_buf4
@@ -1699,6 +1791,7 @@ def _pipe(dev, rng, gpu: str, sets: list):
     import torch
 
     from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import dualchain_r5 as dc
     from stegotpu_torch.studies import emitpipe_r4 as ep
     from stegotpu_torch.studies import harness
     from stegotpu_torch.studies import roofline_r4 as rr
@@ -1713,6 +1806,13 @@ def _pipe(dev, rng, gpu: str, sets: list):
     for (h, w) in ((1080, 1920), (768, 1360)):
         for cover in ("mid", "uniform"):
             frames, payload, total = _covers(dev, rng, 8, h, w, cover)
+            # delta 2^-11 (ArithHopperSmallDelta): K13 == K4 there too
+            small = (frames, payload, total, 2.0**-11, NUM_AC)
+            ref = sk.embed_and_extract_frames_packed(*small)
+            for n in ep.BUFS:
+                got = ep.roundtrip_pipelined_packed(*small, bufs=n)
+                check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+                      f"K13 bufs={n} != K4 at {h}x{w} ({cover}) delta 2^-11")
             args = (frames, payload, total, DELTA, NUM_AC)
             ref = sk.embed_and_extract_frames_packed(*args)
             s_p, bpf_p, _ = ep.roundtrip_pipelined_packed_plain(*args)
@@ -1739,29 +1839,53 @@ def _pipe(dev, rng, gpu: str, sets: list):
                 notes.append(f"bufs {n} >1 px {flips:.5%} max |diff| "
                              f"{int(d.max())}")
             print(f"phase 12 K13 {h}x{w} B=8 {cover}: == K4 (stego, bpf, "
-                  "packed) byte for byte at bufs 2, 3, 4; vs plain: bpf "
+                  "packed) byte for byte at bufs 2, 3, 4, delta 20 and "
+                  "2^-11; vs plain: bpf "
                   "identical, bits within the envelope, " + ", ".join(notes),
                   flush=True)
 
-    # the path's own input: emitpipe_r4's 1080p, B=128
+    # the path's own input: emitpipe_r4's 1080p, B=128; K11 (two frames a
+    # thread) too
     frames, payload = harness.inputs(dev, 128, 1080, 1920)
-    args = (frames, payload, frames.shape[0] * payload.shape[1], DELTA,
-            NUM_AC)
-    ref = sk.embed_and_extract_frames_packed(*args)
-    for n, name in names.items():
-        for capped in (True, False):
-            got = ep.roundtrip_pipelined_packed(*args, bufs=n, capped=capped)
-            torch.cuda.synchronize()
-            d4 = max_diff(got, ref)
-            errs[name] = max(errs[name], d4)
-            check(all(torch.equal(a, c) for a, c in zip(got, ref)),
-                  f"K13 bufs={n} capped={capped} != K4 at 128x1080x1920: "
-                  f"max |diff| {d4}")
-            del got
-    del frames, payload, ref
+    for delta in (DELTA, 2.0**-11):
+        args = (frames, payload, frames.shape[0] * payload.shape[1], delta,
+                NUM_AC)
+        ref = sk.embed_and_extract_frames_packed(*args)
+        for n, name in names.items():
+            for capped in (True, False):
+                got = ep.roundtrip_pipelined_packed(*args, bufs=n,
+                                                    capped=capped)
+                torch.cuda.synchronize()
+                d4 = max_diff(got, ref)
+                errs[name] = max(errs[name], d4)
+                check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+                      f"K13 bufs={n} capped={capped} != K4 at 128x1080x1920 "
+                      f"delta {delta}: max |diff| {d4}")
+                del got
+        got = dc.dual_roundtrip_packed(*args)
+        check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+              f"K11 != K4 at 128x1080x1920 delta {delta}")
+        del got, ref
     print("phase 12 K13 1080p B=128 (the study's input, some 65 tiles a "
           "CTA): == K4 (stego, bpf, packed) byte for byte at bufs 2, 3, 4, "
-          "with and without the register cap", flush=True)
+          "with and without the register cap, and K11 == K4, at delta 20 "
+          "and 2^-11", flush=True)
+    # K13 beside K4 on that input in one call: queued, one 580 MB set (far
+    # beyond the L2, so every call reads from HBM)
+    counts = _counts()
+    total = frames.shape[0] * payload.shape[1]
+    b128 = {"K4": _queued_ms(lambda: sk.embed_and_extract_frames_packed(
+        frames, payload, total, DELTA, NUM_AC), "K4 B=128")}
+    for n in ep.BUFS:
+        b128[f"K13 bufs {n}"] = _queued_ms(
+            lambda n=n: ep.roundtrip_pipelined_packed(
+                frames, payload, total, DELTA, NUM_AC, n), f"K13 bufs {n} B=128")
+    _set_counts(counts)
+    del frames, payload
+    print(f"phase 12 K13 beside K4 1080p B=128 (mean of 20 calls queued "
+          f"behind a sleep kernel, {gpu}): " + ", ".join(
+              f"{k} {v:.4f} ms ({v / b128['K4']:.3f}x K4)"
+              for k, v in b128.items()), flush=True)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, h, w, num_ac, frac in PIPE_ODD:
@@ -1772,16 +1896,27 @@ def _pipe(dev, rng, gpu: str, sets: list):
             rng.integers(0, 2, (b, cap), dtype=np.uint8)).to(dev)
         total = int(frac * b * cap) - 5
         for f_off, p_off, delta in ((0, 0, DELTA), (8, 3, DELTA), (8, 1, 8.0),
-                                    (0, 2, 0.0), (0, 0, -4.0)):
+                                    (0, 1, 2.0**-11), (0, 2, 0.0),
+                                    (0, 0, -4.0)):
             fr = _misaligned(frames, f_off) if f_off else frames
             pl = _misaligned(payload, p_off) if p_off else payload
             args = (fr, pl, total, delta, num_ac)
             ref = sk.embed_and_extract_frames_packed(*args)
+            # the build without the cap at the two spellings' deltas
+            uncapped = delta in (DELTA, 2.0**-11)
             for n in ep.BUFS:
-                got = ep.roundtrip_pipelined_packed(*args, bufs=n)
-                torch.cuda.synchronize()
+                for capped in (True, False) if uncapped else (True,):
+                    got = ep.roundtrip_pipelined_packed(*args, bufs=n,
+                                                        capped=capped)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, c) for a, c in zip(got, ref)),
+                          f"K13 bufs={n} capped={capped} != K4 at "
+                          f"{b}x{h}x{w} num_ac={num_ac} frames+{f_off} "
+                          f"payload+{p_off} delta={delta}")
+            if b % 2 == 0:  # K11 takes frames in pairs
+                got = dc.dual_roundtrip_packed(*args)
                 check(all(torch.equal(a, c) for a, c in zip(got, ref)),
-                      f"K13 bufs={n} != K4 at {b}x{h}x{w} num_ac={num_ac} "
+                      f"K11 != K4 at {b}x{h}x{w} num_ac={num_ac} "
                       f"frames+{f_off} payload+{p_off} delta={delta}")
             if delta <= 0:
                 check(torch.equal(ref[0], frames) and not ref[2].any(),
@@ -1791,8 +1926,9 @@ def _pipe(dev, rng, gpu: str, sets: list):
               f"(W%16={w % 16}, {(w // 8) % 128} blocks in the last chunk, "
               f"payload ends at {total} of {b * cap} bits, {tiles} tiles, "
               f"{tiles / sms:.1f} an SM): == K4 byte for byte at bufs 2, 3, "
-              "4, frames +0/+8 B, payload +0..3 B, delta 20, 8, 0, -4",
-              flush=True)
+              "4 (capped and not at delta 20 and 2^-11), frames +0/+8 B, "
+              "payload +0..3 B, delta 20, 8, 2^-11, 0, -4"
+              + ("; K11 == K4 too" if b % 2 == 0 else ""), flush=True)
 
     counts = _counts()
     calls = {name: (lambda f, p, t, n=n: ep.roundtrip_pipelined_packed(

@@ -1,10 +1,12 @@
 // The block arithmetic shared by every QIM stripe kernel (qim_stripe.cu,
 // K1-K6), the study kernels (qim_study.cu, K9-K12) and K13 (qim_pipe.cu):
 // one embed (embed_block) and one decode (slot_bits), as the TPU kernels
-// share _embed_core and _extract_bits_f32 (stegotpu/ops/pallas_kernel.py).
-// Each source that includes this header compiles its own copy of the same
-// code, so a study kernel and the stripe kernel it varies compute the same
-// bytes by construction: K9 `full` is K5, K10 is K1 and K11 is K4.
+// share _embed_core and _extract_bits_f32 (stegotpu/ops/pallas_kernel.py),
+// and the register cap and bits per frame of the fused kernels
+// (capped_minb, RederiveIfCapped, frame_bits). Each source that includes
+// this header compiles its own copy of the same code, so a study kernel
+// and the stripe kernel it varies compute the same bytes by construction:
+// K9 `full` is K5, K10 is K1, and K11 and K13 are K4.
 //
 // Every rounding is explicit (fmaf, __fmul_rn, __fsub_rn, __fadd_rn), so
 // nvcc's default FMA contraction cannot round one inlined copy differently
@@ -18,11 +20,11 @@
 // conversion pipe, which retires 16 results a clock an SM against FADD's
 // 128 (CUDA C++ Programming Guide, throughput table, compute capability
 // 9.0). tests/test_torch_exact_arith.py proves each step on the CPU; the
-// zero-tolerance identities K10 == K1 (stego), K9 `full` == K5, and
-// K11 == K13 == K4 hold the two spellings to each other on the card. The
-// matrix operand is a template
-// parameter too: `const float*` into a shared-memory copy, or ConstDct, the
-// constant bank (dct8_f32.cuh).
+// zero-tolerance identities K10 == K1 (stego) and K9 `full` == K5 hold the
+// two spellings to each other on the card: only K9 and K10 keep ArithCvt.
+// The matrix operand is a template parameter too: `const float*` into a
+// shared-memory copy (K9, K10), or ConstDct, the constant bank
+// (dct8_f32.cuh).
 
 #pragma once
 
@@ -65,19 +67,19 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ p, int w,
 //   block's bytes instead of keeping x[8][8] live across the embed. On its
 //   own it costs K1 a little; it is what lets K1's register cap at 64 go
 //   without spills, so a kernel takes it in a capped build only
-//   (RederiveIfCapped in qim_stripe.cu).
+//   (RederiveIfCapped below).
 // kBitsFirst: the embed loads the block's payload bits (every slot up to
 //   num_ac, in bounds whatever rem is) before the first slot; else each
 //   slot loads its bit inside its own branch, one round trip after another.
-struct ArithCvt {  // K9-K13: the conversion instructions
+struct ArithCvt {  // K9, K10: the conversion instructions
   static constexpr bool kAddConvert = false, kAddRound = false, kRederive = false,
                         kBitsFirst = false;
 };
-struct ArithHopper {  // K1-K6 at delta >= 2^-10
+struct ArithHopper {  // K1-K6, K11, K13 at delta >= 2^-10
   static constexpr bool kAddConvert = true, kAddRound = true, kRederive = true,
                         kBitsFirst = true;
 };
-struct ArithHopperSmallDelta {  // K1-K6 at delta < 2^-10
+struct ArithHopperSmallDelta {  // K1-K6, K11, K13 at delta < 2^-10
   static constexpr bool kAddConvert = true, kAddRound = false, kRederive = true,
                         kBitsFirst = true;
 };
@@ -86,6 +88,18 @@ struct ArithHopperSmallDelta {  // K1-K6 at delta < 2^-10
 constexpr float kAddRoundMinDelta = 0x1p-10f;
 constexpr float kTwo23 = 8388608.0f;          // 2^23
 constexpr float kRoundShift = 12582912.0f;    // 1.5 * 2^23
+
+// A kernel's CTAs per SM for __launch_bounds__: its cap `minb` at rn <= 2
+// (num_ac <= 15), none (1) above.
+constexpr int capped_minb(int rn, int minb) { return rn <= 2 ? minb : 1; }
+
+// Arith with its pixel re-derive only where a register cap needs it: K1's
+// capped build spills without it, and every build without a cap (rn > 2)
+// is 4-6% faster keeping x[8][8] live.
+template <class Arith, bool Capped>
+struct RederiveIfCapped : Arith {
+  static constexpr bool kRederive = Arith::kRederive && Capped;
+};
 
 // Pixel c of a block row (byte c & 3 of `word`, its half of the row) as f32.
 template <class Arith>
@@ -378,6 +392,22 @@ __device__ __forceinline__ void load_dct(float* m, const float* __restrict__ dct
 __device__ __forceinline__ size_t block_offset(int f, int by, int bx, int h, int w) {
   return (static_cast<size_t>(f) * h + static_cast<size_t>(by) * 8) * w +
          static_cast<size_t>(bx) * 8;
+}
+
+// A frame's payload bits, clamp(left, 0, cap), where left is the number of
+// bits left at the frame's first slot: what each fused kernel writes to
+// bpf[f], so that its wrapper needs no device op of its own.
+__device__ __forceinline__ int frame_bits_clamp(long long left, long long cap) {
+  return static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
+}
+
+// Thread 0 of the frame's first CTA of a (column chunks, block rows,
+// frames) grid writes bpf[f]; a persistent kernel (K13) picks its writer
+// by the tile instead and calls frame_bits_clamp itself.
+__device__ __forceinline__ void frame_bits(int* __restrict__ bpf, int f,
+                                           long long left, long long cap) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+    bpf[f] = frame_bits_clamp(left, cap);
 }
 
 // Select the device and clear a stale error of an earlier call.

@@ -138,8 +138,7 @@ kron_embed_kernel(const uint8_t* __restrict__ frames, const uint8_t* __restrict_
   const long long cap = static_cast<long long>(nb) * num_ac;
   for (int f = blockIdx.x * kKronThreads + t; f < blocks / nb;
        f += gridDim.x * kKronThreads) {
-    const long long bits = left - f * cap;
-    bpf[f] = static_cast<int>(bits < 0 ? 0 : (bits < cap ? bits : cap));
+    bpf[f] = frame_bits_clamp(left - f * cap, cap);
   }
   float* mine = xs + column_of(t);  // block t of the tile: load and QIM
   const int tiles = (blocks + kTile - 1) / kTile;

@@ -50,7 +50,7 @@
 // All six kernels are designed for Hopper: K1 and K2, the main path's
 // kernels, K3 and K4, the verified embed's and the bench's, and K5 and
 // K6, the exactness harness's unpacked extract and the fused unpacked
-// round trip; only the study kernels K9-K13 keep the first design's
+// round trip; only the study kernels K9 and K10 keep the first design's
 // conversion spelling. What held the first design back was
 // instruction throughput, not bytes: every u8 pixel became a float on the
 // conversion pipe (16 results a clock an SM against FADD's 128), every
@@ -93,26 +93,6 @@ namespace {
 #ifndef STEGOTPU_K6_MINB
 #define STEGOTPU_K6_MINB 8
 #endif
-
-// A kernel's CTAs per SM: its cap at rn <= 2, none above.
-constexpr int capped_minb(int rn, int minb) { return rn <= 2 ? minb : 1; }
-
-// Arith with its pixel re-derive only where a register cap needs it: K1's
-// capped build spills without it, and every build without a cap (rn > 2)
-// is 4-6% faster keeping x[8][8] live.
-template <class Arith, bool Capped>
-struct RederiveIfCapped : Arith {
-  static constexpr bool kRederive = Arith::kRederive && Capped;
-};
-
-// Thread 0 of the frame's first CTA writes the frame's payload bits,
-// clamp(left, 0, cap), where left is the number of bits left at the
-// frame's first slot: the wrappers then need no device op of their own.
-__device__ __forceinline__ void frame_bits(int* __restrict__ bpf, int f,
-                                           long long left, long long cap) {
-  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
-    bpf[f] = static_cast<int>(left < 0 ? 0 : (left < cap ? left : cap));
-}
 
 // K1-K6 take the Hopper arithmetic (qim_common.cuh): the matrix from the
 // constant bank, no barrier, and at delta >= 2^-10 no conversion

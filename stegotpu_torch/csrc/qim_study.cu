@@ -20,10 +20,13 @@
 //     payload read bit-packed in K2's layout (8 slot bits per byte), the
 //     layout of payload_to_rows_packed (:53-61). Non-slot bits and pad rows
 //     are never read into the stego.
-// K11 qim_roundtrip_dual_kernel<RN> replaces _dual_kernel
+// K11 qim_roundtrip_dual_kernel<RN, Arith, MINB> replaces _dual_kernel
 //     (benchmarks/dualchain_r5.py:43, pallas_call :91): K4 with two frames
 //     per thread as two independent dependency chains, for
-//     instruction-level parallelism.
+//     instruction-level parallelism. It takes K4's Hopper design (the
+//     ArithHopper spelling, the matrix from the constant bank, the bits
+//     per frame written in the kernel, a register cap), so that its A/B
+//     against K4 measures the second chain and nothing else.
 // K12 copy_kernel<V> replaces the DMA-only variants of
 //     benchmarks/roofline_r4.py:53-149 (pallas_call :91, :149):
 //       copy     stego = frames, 16-byte loads and stores (:85-86): the
@@ -34,11 +37,29 @@
 //
 // Bound on the H100: memory traffic, as for the stripe kernels. The study
 // kernels measure how far each stage of K5, K1 and K4 stands above it.
+// K9 and K10 keep the first design's conversion spelling (ArithCvt, the
+// matrix in shared memory): K9 `full` == K5 and K10 == K1 are the
+// zero-tolerance witnesses that the two spellings agree.
 // Build WITHOUT --use_fast_math (see qim_stripe.cu).
 
 #include "qim_common.cuh"
 
 namespace {
+
+// The CTAs per SM that K11's build asks ptxas to fit at rn <= 2 (1: no
+// cap). A thread holds two blocks, twice K4's live state, so the cap that
+// gives K4 its 64 registers would spill here; the cap also sets the tail,
+// since the grid is 2 x 135 x 4 = 1,080 CTAs at 1080p B=8. At 1080p B=8
+// on an H100 80GB HBM3 at 700 W, no cap (167 registers, 3 CTAs an SM,
+// 2.73 waves) took 0.0335 ms, 4 (125 registers, 2.05 waves) 0.0346, 5
+// (96, 1.64 waves) 0.0345, and 6 (80 registers, 1.36 waves) spills 52 B
+// and took 0.0350 (PERF.md section 6):
+// the second chain's latency hiding needs its registers more than the
+// tail needs CTAs. studies/stripe_cap.py rebuilds this source with
+// -DSTEGOTPU_K11_MINB=<n> for the A/B (`--minb k11:<n>`).
+#ifndef STEGOTPU_K11_MINB
+#define STEGOTPU_K11_MINB 1
+#endif
 
 enum Ablation : int {
   kFull = 0,
@@ -219,17 +240,27 @@ qim_embed_packedin_kernel(const uint8_t* __restrict__ frames,
   store_rows(stego + off, w, raw);
 }
 
-template <int RN>
-__global__ void __launch_bounds__(kThreads)
+// K11: each thread takes block (by, bx) of frames 2z and 2z+1, two chains
+// with no data dependence between them. Both frames' rows and then both
+// blocks' payload bits are loaded before either chain's first FMA, so
+// neither chain waits on the other's loads; then each chain is K4's
+// embed_block and slot_bits with K4's Arith, so the stego, bits per frame
+// and packed bits are K4's byte for byte. Thread 0 of CTA (0, 0, z) writes
+// the bits per frame of both frames: a call is one launch.
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
 qim_roundtrip_dual_kernel(const uint8_t* __restrict__ frames,
                           const uint8_t* __restrict__ payload,
-                          uint8_t* __restrict__ stego,
-                          uint8_t* __restrict__ packed,
-                          const float* __restrict__ dct, int h, int w,
+                          uint8_t* __restrict__ stego, int* __restrict__ bpf,
+                          uint8_t* __restrict__ packed, int h, int w,
                           int num_ac, long long cap, long long total_bits,
                           int stripe_blocks, int rows_pad, float delta) {
-  __shared__ float m[64];
-  load_dct(m, dct);
+  const ConstDct m{};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int f = 2 * blockIdx.z + k;
+    frame_bits(bpf, f, total_bits - f * cap, cap);  // no bit offset
+  }
 
   const int bw = w / 8;
   const int bx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -237,26 +268,32 @@ qim_roundtrip_dual_kernel(const uint8_t* __restrict__ frames,
   const int by = blockIdx.y;
   const long long blk = static_cast<long long>(by) * bw + bx;
 
-  // two frames, two chains with no data dependence between them
+  // two frames, two chains: every load of both before the first FMA
   uint2 raw[2][8];
 #pragma unroll
   for (int k = 0; k < 2; ++k)
     load_rows(frames + block_offset(2 * blockIdx.z + k, by, bx, h, w), w, raw[k]);
+  long long rem[2];
+  HeldBits<RN> bits[2];  // read only where the chain embeds
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int f = 2 * blockIdx.z + k;
-    const long long rem = total_bits - f * cap - blk * num_ac;  // no bit offset
-    if (rem > 0 && delta > 0.0f)
-      embed_block<RN>(raw[k], m, WireBits{payload + f * cap + blk * num_ac}, rem,
-                      num_ac, delta);
+    rem[k] = total_bits - f * cap - blk * num_ac;  // no bit offset
+    if (rem[k] > 0 && delta > 0.0f)
+      bits[k].load(payload + f * cap + blk * num_ac, num_ac);
   }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (rem[k] > 0 && delta > 0.0f)
+      embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(raw[k], m, bits[k], rem[k],
+                                                           num_ac, delta);
 #pragma unroll
   for (int k = 0; k < 2; ++k)
     store_rows(stego + block_offset(2 * blockIdx.z + k, by, bx, h, w), w, raw[k]);
   // re-extract from the quantized stego, still in registers
   uint32_t byte[2][RN];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) slot_bits<RN>(raw[k], m, delta, byte[k]);
+  for (int k = 0; k < 2; ++k) slot_bits<RN, Arith>(raw[k], m, delta, byte[k]);
 #pragma unroll
   for (int k = 0; k < 2; ++k)
     write_packed<RN>(packed, byte[k], 2 * blockIdx.z + k, by, bx, h, bw,
@@ -376,9 +413,10 @@ int stegotpu_qim_embed_packedin(const void* frames, const void* packed_payload,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As stegotpu_qim_roundtrip_packed, two frames per thread; B % 2 == 0.
+// As stegotpu_qim_roundtrip_packed (qim_stripe.cu), two frames per
+// thread; B % 2 == 0. bpf: (B,) int32, written by the kernel.
 int stegotpu_qim_roundtrip_dual(const void* frames, const void* payload,
-                                void* stego, void* packed, const void* dct,
+                                void* stego, void* bpf, void* packed,
                                 int device, int b, int h, int w, int num_ac,
                                 long long total_bits, int stripe, int rows_pad,
                                 float delta, void* stream) {
@@ -387,12 +425,19 @@ int stegotpu_qim_roundtrip_dual(const void* frames, const void* payload,
   if (b % 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STEGOTPU_DUAL(RN)                                                   \
-  qim_roundtrip_dual_kernel<RN><<<grid_of(b / 2, h, w), kThreads, 0, s>>>(  \
-      static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload), \
-      static_cast<uint8_t*>(stego), static_cast<uint8_t*>(packed),          \
-      static_cast<const float*>(dct), h, w, num_ac, cap, total_bits,        \
-      stripe / 8, rows_pad, delta)
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b / 2, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf),
+        static_cast<uint8_t*>(packed), h, w, num_ac, cap, total_bits,
+        stripe / 8, rows_pad, delta);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_DUAL(RN)                                                 \
+  launch(fast ? qim_roundtrip_dual_kernel<RN, ArithHopper,               \
+                                          capped_minb(RN, STEGOTPU_K11_MINB)> \
+              : qim_roundtrip_dual_kernel<RN, ArithHopperSmallDelta,     \
+                                          capped_minb(RN, STEGOTPU_K11_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_DUAL)
 #undef STEGOTPU_DUAL
   return static_cast<int>(cudaGetLastError());

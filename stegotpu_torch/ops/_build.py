@@ -78,13 +78,16 @@ def stale() -> bool:
             or stamp.read_text().strip() != digest())
 
 
-def _compile(srcs: list[Path], out: Path, defines: tuple[str, ...] = ()) -> str:
+def _compile(srcs: list[Path], out: Path, defines: tuple[str, ...] = (),
+             includes: tuple[Path, ...] = ()) -> str:
     """nvcc every source into an object in parallel, then link them into
-    the shared library `out`; `defines` adds -D flags (the register-cap
-    builds of studies/stripe_cap.py). Returns the compilers' output."""
+    the shared library `out`; `defines` adds -D flags and `includes` -I
+    directories (the builds of studies/stripe_cap.py). Returns the
+    compilers' output."""
     nvcc = _nvcc()
     objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in srcs]
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines),
+             *(f"-I{d}" for d in includes)]
     procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)

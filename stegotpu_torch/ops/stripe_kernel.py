@@ -415,7 +415,7 @@ _DCT_ON_DEVICE: dict[torch.device, torch.Tensor] = {}
 
 def _dct_on(device: torch.device) -> torch.Tensor:
     """dct_matrix(8) as f32 on `device`: the 64-entry operand of the study
-    kernels K9-K11 and K13, which keep the matrix in shared memory."""
+    kernels K9 and K10, which keep the matrix in shared memory."""
     if device not in _DCT_ON_DEVICE:
         from stegotpu_torch.ops.dct import dct_matrix
 

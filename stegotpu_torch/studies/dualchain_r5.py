@@ -2,13 +2,15 @@
 independent dependency chains.
 
 Counterpart of ``benchmarks/dualchain_r5.py``: its ``_dual_kernel`` (:43,
-pallas_call :91) becomes the CUDA kernel ``qim_roundtrip_dual_kernel<RN>``
-in ``csrc/qim_study.cu``. Each thread loads the same 8x8 block of frames
-2z and 2z+1, embeds, stores and re-extracts both with K4's ``embed_block``
-and ``slot_bits``; nothing in one chain waits on the other, so the
-compiler may interleave them for instruction-level parallelism, at twice
-the registers of K4. Its stego, bits per frame and packed bits are K4's
-byte for byte. B must be even.
+pallas_call :91) becomes the CUDA kernel
+``qim_roundtrip_dual_kernel<RN, Arith, MINB>`` in ``csrc/qim_study.cu``.
+Each thread loads the same 8x8 block of frames 2z and 2z+1 and both
+blocks' payload bits, then embeds, stores and re-extracts both with K4's
+``embed_block`` and ``slot_bits`` in K4's Hopper spelling; nothing in one
+chain waits on the other, so the compiler may interleave them for
+instruction-level parallelism, at twice the live state of K4. Its stego,
+bits per frame (written by the kernel) and packed bits are K4's byte for
+byte. B must be even.
 
 ``dual_roundtrip_packed`` launches the kernel on a CUDA tensor and runs
 ``dual_roundtrip_packed_plain`` only on a CPU tensor; ``DUAL_LAUNCHES``
@@ -55,7 +57,7 @@ def dual_roundtrip_packed(
     thread. B must be even."""
     global DUAL_LAUNCHES
     b, h, w = sk._check_frames(frames)
-    cap = sk._check_payload(payload_bits, frames, num_ac)
+    sk._check_payload(payload_bits, frames, num_ac)
     _check_even(frames)
     if frames.device.type == "cpu":
         return dual_roundtrip_packed_plain(frames, payload_bits, total_bits,
@@ -63,15 +65,17 @@ def dual_roundtrip_packed(
     shape, stripe, rp = sk._packed_shape(b, h, w, num_ac, w // BLOCK)
     stego = torch.empty_like(frames)
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
-    if stego.numel():
-        dev = frames.device
-        sk._launch("stegotpu_qim_roundtrip_dual", frames.data_ptr(),
-                   payload_bits.data_ptr(), stego.data_ptr(), packed.data_ptr(),
-                   sk._dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                   int(total_bits), stripe, rp, float(delta), sk._stream(dev))
-        DUAL_LAUNCHES += 1
-    return stego, sk._bits_per_frame(b, cap, int(total_bits), 0,
-                                     frames.device), packed
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32,
+                                  device=frames.device), packed
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    sk._launch("stegotpu_qim_roundtrip_dual", frames.data_ptr(),
+               payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+               packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+               stripe, rp, float(delta), sk._stream(dev))
+    DUAL_LAUNCHES += 1
+    return stego, bpf, packed
 
 
 def dual_roundtrip(frames: torch.Tensor, payload_bits: torch.Tensor,

@@ -4,12 +4,14 @@ a ring of ``--bufs`` tiles filled ahead of the compute.
 Counterpart of ``benchmarks/emitpipe_r4.py``: its ``outer`` (:71-108,
 pallas_call :119), one kernel step that drives ``pltpu.emit_pipeline`` over
 the (frame, stripe) tiles with a ``bufs``-deep input ring, becomes the CUDA
-kernel ``qim_roundtrip_pipe_kernel<RN, BUFS>`` in ``csrc/qim_pipe.cu``: a
-persistent kernel whose CTAs walk the (frame, block row, column chunk)
-tiles, each through a ring of BUFS shared-memory slots that ``cp.async``
-fills BUFS-1 tiles ahead. Its compute is K4's ``embed_block`` and
-``slot_bits``, so its stego and packed bits are K4's byte for byte. The
-script's function is K4's too: its ``valid_mask`` (:62-69) is K4's ``rem``
+kernel ``qim_roundtrip_pipe_kernel<RN, Arith, BUFS, MINB>`` in
+``csrc/qim_pipe.cu``: a persistent kernel whose CTAs walk the (frame,
+block row, column chunk) tiles, each through a ring of BUFS shared-memory
+slots that ``cp.async`` fills BUFS-1 tiles ahead. Its compute is K4's
+``embed_block`` and ``slot_bits`` in K4's Hopper spelling, and it writes
+the bits per frame itself, so its stego, bits per frame and packed bits
+are K4's byte for byte and a call is one launch. The script's function is
+K4's too: its ``valid_mask`` (:62-69) is K4's ``rem``
 rule with no bit offset (``stripe_kernel.slot_valid``), and its packed
 output is K4's layout padded to 256 lanes for Mosaic's DMA alignment, which
 is not ported, nor are its 120-row stripe tile and its compact payload
@@ -74,7 +76,7 @@ def roundtrip_pipelined_packed(
     layout, as for K4. capped=False launches the build without the
     register cap that K13 takes at num_ac <= 15 (the A/B of the cap)."""
     b, h, w = sk._check_frames(frames)
-    cap = sk._check_payload(payload_bits, frames, num_ac)
+    sk._check_payload(payload_bits, frames, num_ac)
     _check_bufs(bufs)
     shape, stripe, rp = sk._packed_shape(b, h, w, num_ac, w // BLOCK, stripe)
     if frames.device.type == "cpu":
@@ -82,18 +84,19 @@ def roundtrip_pipelined_packed(
             frames, payload_bits, total_bits, delta, num_ac, bufs, stripe)
     stego = torch.empty_like(frames)
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
-    if stego.numel():
-        dev = frames.device
-        sk._launch("stegotpu_qim_roundtrip_pipe", frames.data_ptr(),
-                   payload_bits.data_ptr(), stego.data_ptr(), packed.data_ptr(),
-                   sk._dct_on(dev).data_ptr(), dev.index, bufs, int(capped),
-                   b, h, w,
-                   num_ac, int(total_bits), stripe, rp, float(delta),
-                   sk._stream(dev))
-        counter = f"PIPE_BUF{bufs}_LAUNCHES"
-        globals()[counter] += 1
-    return stego, sk._bits_per_frame(b, cap, int(total_bits), 0,
-                                     frames.device), packed
+    if not stego.numel():  # no block, no bit
+        return stego, torch.zeros(b, dtype=torch.int32,
+                                  device=frames.device), packed
+    bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
+    dev = frames.device
+    sk._launch("stegotpu_qim_roundtrip_pipe", frames.data_ptr(),
+               payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+               packed.data_ptr(), dev.index, bufs, int(capped), b, h, w,
+               num_ac, int(total_bits), stripe, rp, float(delta),
+               sk._stream(dev))
+    counter = f"PIPE_BUF{bufs}_LAUNCHES"
+    globals()[counter] += 1
+    return stego, bpf, packed
 
 
 def main(argv=None) -> int:

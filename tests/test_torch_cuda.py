@@ -192,19 +192,19 @@ IDENTITY_DELTAS = [20.0, 8.0, 0.0, 1.0, 0.5, 100.0, 2.0**-10, 2.0**-11, 1e-4,
 @pytest.mark.parametrize("delta", IDENTITY_DELTAS)
 @pytest.mark.parametrize("b,h,w,num_ac,frac", [
     (2, 48, 240, 10, 1.0), (2, 64, 64, 63, 1.0), (2, 1080, 1920, 10, 1.0),
-    (2, 768, 1360, 30, 1.0), (3, 40, 136, 1, 1.4), (3, 48, 1048, 63, 1.6)])
+    (2, 768, 1360, 30, 1.0), (3, 40, 136, 1, 1.4), (3, 48, 1048, 63, 1.6),
+    (2, 48, 1048, 7, 1.6)])
 def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
     """Kernel against kernel: K3's, K4's and K6's stego and bits per frame
     are K1's byte for byte, K4's packed bits are K2's of K4's stego and
     K6's rows K5's of K6's stego byte for byte, K5 is K2 lane for lane,
     K3's per-frame count equals a count from K2 on K3's stego, K9 full is
     K5 byte for byte, and K13 (a ring of 2) and, at an even B, K11 are K4
-    (stego, bits per frame, packed bits). K1-K6 spell the arithmetic for
-    Hopper (ArithHopperSmallDelta below delta 2^-10), K9, K11 and K13 with
-    conversion instructions: K9 full == K5 is the extract side's witness
-    across the two spellings, K11 == K13 == K4 the round trip's, and the
-    two give the same bytes at every delta. The last two shapes have W %
-    16 == 8 and a payload that ends mid-frame."""
+    (stego, bits per frame, packed bits). K1-K6, K11 and K13 spell the
+    arithmetic for Hopper (ArithHopperSmallDelta below delta 2^-10), K9
+    with conversion instructions: K9 full == K5 is the witness across the
+    two spellings, which give the same bytes at every delta. The last
+    three shapes have W % 16 == 8 and a payload that ends mid-frame."""
     from stegotpu_torch.studies import dualchain_r5, emitpipe_r4
     from stegotpu_torch.studies import extract_ablation as ea
 
@@ -244,9 +244,9 @@ def test_zero_tolerance_identities(dev, b, h, w, num_ac, frac, delta, kind):
 
 @functools.cache
 def _uncapped():
-    """The kernel library built without the register caps of K1, K3, K4
-    and K6 (-DSTEGOTPU_K1_MINB=1 and so on, studies/stripe_cap.py), built
-    once."""
+    """The kernel library built without the register caps of K1, K3, K4,
+    K6, K11 and K13 (-DSTEGOTPU_K1_MINB=1 and so on, studies/stripe_cap.py),
+    built once."""
     from stegotpu_torch.studies import stripe_cap
 
     how = {"defines": {stripe_cap.KERNELS[k][3]: 1 for k in stripe_cap.CAPPED}}
@@ -256,9 +256,9 @@ def _uncapped():
 @pytest.mark.parametrize("delta", [20.0, 0.5, 2.0**-11])
 @pytest.mark.parametrize("num_ac", [10, 15, 1, 30])
 def test_capped_and_uncapped_builds_agree(dev, num_ac, delta):
-    """The register-capped builds of K1, K3, K4 and K6 (num_ac <= 15, with
-    the pixel re-derive) and the builds without a cap give the same bytes,
-    and K5 (no cap) the same rows in both libraries."""
+    """The register-capped builds of K1, K3, K4, K6, K11 and K13 (num_ac
+    <= 15, with the pixel re-derive) and the builds without a cap give the
+    same bytes, and K5 (no cap) the same rows in both libraries."""
     from stegotpu_torch.studies import stripe_cap
 
     frames, payload, total = _cover(dev, "mid", 2, 1080, 1920, num_ac)
@@ -731,15 +731,17 @@ def _misaligned(x, offset):
 
 # the odd shapes of K13's ring: W % 16 != 0 (1048, 136), block columns that
 # are no multiple of the 128-block chunk (131, 17), odd num_ac (the payload
-# chunks lose 4-byte alignment), a payload that ends mid-frame. At the small
-# batches each CTA walks at most one tile; at the large ones (and at the
-# 1080p B=128 of the study) the tiles outnumber the resident CTAs many times
-# over, so every ring slot is refilled again and again.
+# chunks lose 4-byte alignment), a payload that ends mid-block and
+# mid-frame. At the small batches each CTA walks at most one tile; at the
+# large ones (and at the 1080p B=128 of the study) the tiles outnumber the
+# resident CTAs many times over, so every ring slot is refilled again and
+# again.
 PIPE_SHAPES = [(3, 48, 1048, 10, 0.7), (2, 40, 136, 1, 1.0),
                (2, 64, 64, 63, 0.5), (4, 96, 1360, 7, 0.3),
                (2, 1080, 1920, 10, 1.0), (512, 96, 1360, 7, 0.3),
                (512, 48, 1048, 10, 0.7), (2048, 40, 136, 1, 1.0),
-               (2048, 64, 64, 63, 0.5), (128, 1080, 1920, 10, 1.0)]
+               (2048, 64, 64, 63, 0.5), (128, 1080, 1920, 10, 1.0),
+               (2, 48, 1048, 7, 0.6), (128, 96, 1360, 10, 0.9)]
 
 
 @pytest.mark.parametrize("capped", [True, False])
@@ -749,15 +751,17 @@ def test_pipe_kernel_is_k4(dev, b, h, w, num_ac, frac, bufs, capped):
     """K13 (the cp.async ring) is K4 byte for byte: stego, bits per frame
     and packed bits, at every ring depth, with and without its register
     cap, on the odd shapes, with frames 8 bytes and a payload 1-3 bytes off
-    16-byte alignment, and at delta <= 0 (every block passes through, every
-    bit reads 0)."""
+    16-byte alignment, at delta 2^-11 (ArithHopperSmallDelta) and at delta
+    <= 0 (every block passes through, every bit reads 0); so is K11 where B
+    is even (once a shape)."""
+    from stegotpu_torch.studies import dualchain_r5 as dc
     from stegotpu_torch.studies import emitpipe_r4 as ep
 
     frames, payload, _ = _cover(dev, "mid", b, h, w, num_ac, seed=num_ac)
     cap = payload.shape[1]
     total = int(frac * b * cap) - 5
     for f_off, p_off, delta in ((0, 0, 20.0), (8, 3, 20.0), (8, 1, 8.0),
-                                (0, 2, 0.0), (0, 0, -4.0)):
+                                (0, 0, 2.0**-11), (0, 2, 0.0), (0, 0, -4.0)):
         fr = _misaligned(frames, f_off) if f_off else frames
         pl = _misaligned(payload, p_off) if p_off else payload
         args = (fr, pl, total, delta, num_ac)
@@ -766,8 +770,13 @@ def test_pipe_kernel_is_k4(dev, b, h, w, num_ac, frac, bufs, capped):
         got = ep.roundtrip_pipelined_packed(*args, bufs=bufs, capped=capped)
         assert getattr(ep, counter) == before + 1
         ref = sk.embed_and_extract_frames_packed(*args)
+        others = [got]
+        if b % 2 == 0 and bufs == 2 and capped:  # two frames a thread
+            others.append(dc.dual_roundtrip_packed(*args))
         torch.cuda.synchronize()
-        for a, c in zip(got, ref):
-            assert torch.equal(a, c), (f_off, p_off, delta)
+        for g in others:
+            for a, c in zip(g, ref):
+                assert torch.equal(a, c), (f_off, p_off, delta, len(g))
         if delta <= 0:
             assert torch.equal(got[0], frames) and not got[2].any()
+

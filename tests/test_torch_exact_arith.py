@@ -260,21 +260,43 @@ def test_lane_spread_by_multiply_equals_the_shifts_for_every_byte():
     np.testing.assert_array_equal(lanes, want.astype(np.uint8))
 
 
-# --- K6's bits per frame ------------------------------------------------------------
+# --- K6's, K11's and K13's bits per frame --------------------------------------------
 
 def _frame_bits(left: int, cap: int) -> int:
-    """frame_bits of csrc/qim_stripe.cu: clamp(left, 0, cap) in long long,
-    cast to int."""
+    """frame_bits_clamp of csrc/qim_common.cuh: clamp(left, 0, cap) in long
+    long, cast to int."""
     return int(np.int32(0 if left < 0 else (left if left < cap else cap)))
 
 
-def test_k6_passes_frame_bits_no_bit_offset():
-    body = _between("qim_stripe.cu", "void frame_bits(", "}")
-    assert "left < 0 ? 0 : (left < cap ? left : cap)" in body
-    k6 = _between("qim_stripe.cu", "qim_roundtrip_rows_kernel(const",
-                  "store_rows(")
-    assert "frame_bits(bpf, f, total_bits - f * cap, cap);" in k6
-    assert "long long cap, long long total_bits" in k6
+# kernel -> (its source, the start and end of its body, the call that
+# writes its bits per frame): each passes total_bits - f * cap (no bit
+# offset) to the shared clamp, K6 and K11 through frame_bits' writer
+# predicate, K13 through its tile's
+FRAME_BITS_CALLS = {
+    "K6": ("qim_stripe.cu", "qim_roundtrip_rows_kernel(const", "store_rows(",
+           "frame_bits(bpf, f, total_bits - f * cap, cap);"),
+    "K11": ("qim_study.cu", "qim_roundtrip_dual_kernel(const", "store_rows(",
+            "frame_bits(bpf, f, total_bits - f * cap, cap);"),
+    "K13": ("qim_pipe.cu", "qim_roundtrip_pipe_kernel(const", "store_rows(",
+            "bpf[t.f] = frame_bits_clamp(total_bits - t.f * cap, cap);"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(FRAME_BITS_CALLS))
+def test_k6_passes_frame_bits_no_bit_offset(kernel):
+    clamp = _between("qim_common.cuh", "int frame_bits_clamp(", "}")
+    assert "left < 0 ? 0 : (left < cap ? left : cap)" in clamp
+    writer = _between("qim_common.cuh", "void frame_bits(", "}")
+    assert "bpf[f] = frame_bits_clamp(left, cap);" in writer
+    src, start, end, call = FRAME_BITS_CALLS[kernel]
+    body = _between(src, start, end)
+    assert call in body
+    assert "long long cap, long long total_bits" in body
+    # no kernel carries its own copy of the clamp or the cap's pieces
+    text = (CSRC / src).read_text()
+    assert "left < cap ? left : cap" not in text
+    assert "struct RederiveIfCapped" not in text
+    assert "int capped_minb(" not in text
 
 
 CAP_1080 = 135 * 240 * 10
@@ -295,3 +317,29 @@ def test_frame_bits_clamp_equals_bits_per_frame(b, cap, total):
     got = [_frame_bits(total - f * cap, cap) for f in range(b)]
     assert want.dtype == torch.int32
     assert want.tolist() == got
+
+
+@pytest.mark.parametrize("kernel,src", [("K11", "qim_study.cu"),
+                                        ("K13", "qim_pipe.cu")])
+def test_k11_and_k13_take_k4s_spelling(kernel, src):
+    """K11 and K13 take K4's Hopper design: an Arith template parameter
+    (ArithHopper, or ArithHopperSmallDelta below delta 2^-10, picked by the
+    launch as K4's is), the matrix from the constant bank (ConstDct), no
+    shared-memory copy of it (load_dct), and the pixel re-derive only where
+    capped."""
+    name = {"K11": "qim_roundtrip_dual_kernel",
+            "K13": "qim_roundtrip_pipe_kernel"}[kernel]
+    text = (CSRC / src).read_text()
+    head = text[:text.index(f"\n{name}(")]
+    template = head[head.rindex("template <"):]
+    assert re.match(r"template <int RN, class Arith, (int BUFS, )?int MINB>",
+                    template), template
+    body = _between(src, f"\n{name}(", "\n}\n")
+    assert "const ConstDct m{};" in body
+    assert "load_dct" not in body and "__shared__ float m" not in body
+    assert "embed_block<RN, RederiveIfCapped<Arith, (MINB > 1)>>(" in body
+    assert "slot_bits<RN, Arith>(" in body
+    launch = text[text.index("extern \"C\""):] if kernel == "K11" else text
+    assert "const bool fast = delta >= kAddRoundMinDelta;" in launch \
+        or "const bool fast = a.delta >= kAddRoundMinDelta;" in launch
+    assert "ArithHopperSmallDelta" in launch

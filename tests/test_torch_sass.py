@@ -87,6 +87,124 @@ def test_cap_builds_of_the_minb_option():
             stripe_cap.variants_of("", bad)
 
 
+def test_cap_builds_of_k11():
+    """--minb takes K11's cap (qim_study.cu) and K13's, one per ring depth
+    (qim_pipe.cu); a variant compiles the sources of the kernels it
+    holds."""
+    assert stripe_cap.variants_of("k11:1,k11:5,k13_2:7,k13_4:1") == [
+        ("library", None),
+        ("k11_minb_1", {"defines": {"STEGOTPU_K11_MINB": 1}}),
+        ("k11_minb_5", {"defines": {"STEGOTPU_K11_MINB": 5}}),
+        ("k13_2_minb_7", {"defines": {"STEGOTPU_K13_BUF2_MINB": 7}}),
+        ("k13_4_minb_1", {"defines": {"STEGOTPU_K13_BUF4_MINB": 1}})]
+    for bad in ("k13:8", "k13_5:8", "k11:0", "k13_3:0"):
+        with pytest.raises(ValueError, match="CTAs per SM"):
+            stripe_cap.variants_of(bad)
+    assert set(stripe_cap.SOURCES.values()) == {"qim_stripe.cu", "qim_study.cu",
+                                                "qim_pipe.cu"}
+
+
+def test_src_builds_take_defines():
+    """--src name=DIR:NAME=VALUE:... adds -D flags to a source build (the
+    producer forms of csrc/pipe_bulk); a flag needs a name and a value."""
+    assert stripe_cap.variants_of(
+        "", "a=/tmp/a,t0=/tmp/b:STEGOTPU_K13_PRODUCER=0:X=y") == [
+        ("library", None), ("a", {"src": "/tmp/a"}),
+        ("t0", {"src": "/tmp/b",
+                "defines": {"STEGOTPU_K13_PRODUCER": 0, "X": "y"}})]
+    for bad in ("a=/tmp/a:", "a=/tmp/a:X", "a=/tmp/a:=1", "a=/tmp/a:X="):
+        with pytest.raises(ValueError, match="name=DIR"):
+            stripe_cap.variants_of("", bad)
+
+
+def test_kernels_timed_follow_the_builds(tmp_path):
+    """stripe_cap holds and times K4 and the kernels its builds vary: the
+    caps --minb names, the sources a --src DIR holds; every kernel when the
+    library is the only build."""
+    assert stripe_cap.keys_of(stripe_cap.variants_of("")) == ["k4", *(
+        k for k in stripe_cap.KERNELS if k != "k4")]
+    assert stripe_cap.keys_of(stripe_cap.variants_of("k11:4")) == ["k4", "k11"]
+    assert stripe_cap.keys_of(stripe_cap.variants_of("k4:4,k6:1")) == [
+        "k4", "k6"]
+    (tmp_path / "qim_pipe.cu").write_text("// a study source\n")
+    assert stripe_cap.keys_of(stripe_cap.variants_of(
+        "k13_2:7", f"bulk={tmp_path}")) == ["k4", "k13_2", "k13_3", "k13_4"]
+    (tmp_path / "qim_stripe.cu").write_text("// a study source\n")
+    assert stripe_cap.keys_of(stripe_cap.variants_of(
+        "", f"s={tmp_path}")) == ["k4", "k1", "k3", "k5", "k6", "k13_2",
+                                  "k13_3", "k13_4"]
+
+
+def test_src_build_falls_back_to_csrc(tmp_path, monkeypatch):
+    """A --src build compiles each source its DIR holds and csrc/'s for
+    the others (qim_stripe.cu always: K4, the yardstick), with csrc/ as an
+    include directory so that DIR need hold no header."""
+    from stegotpu_torch.ops import _build
+
+    (tmp_path / "qim_pipe.cu").write_text("// a study source\n")
+    calls = []
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_compile", lambda srcs, out, defines=(),
+                        includes=(): calls.append(
+                            (srcs, defines, includes)) or "")
+    monkeypatch.setattr(_build, "bind", lambda lib: lib)
+    monkeypatch.setattr(stripe_cap.ctypes, "CDLL", lambda path: path)
+    variants = stripe_cap.variants_of(
+        "", f"bulk={tmp_path}:STEGOTPU_K13_PRODUCER=1")[1:]
+    built = stripe_cap.build_variants(variants, stripe_cap.keys_of(variants))
+    assert list(built) == ["bulk"]
+    [(srcs, defines, includes)] = calls
+    assert srcs == [tmp_path / "qim_pipe.cu", _build.CSRC / "qim_stripe.cu"]
+    assert defines == ("STEGOTPU_K13_PRODUCER=1",)
+    assert includes == (_build.CSRC,)
+
+
+def test_bulk_ring_source_has_the_library_interface():
+    """csrc/pipe_bulk/qim_pipe.cu (step (b) of K13: the ring on bulk
+    asynchronous copies and mbarriers, kept as a study source outside the
+    library) has the library K13's C entry point, so stripe_cap --src can
+    build it in its place, and no __syncthreads() in its tile loop."""
+    from stegotpu_torch.ops import _build
+
+    bulk = (_build.CSRC / "pipe_bulk" / "qim_pipe.cu").read_text()
+    lib = (_build.CSRC / "qim_pipe.cu").read_text()
+    entry = lib[lib.index('extern "C" {'):]
+    assert bulk[bulk.index('extern "C" {'):] == entry
+    assert bulk.count("cp.async.bulk.shared::cluster.global.mbarrier") == 1
+    assert "fence.mbarrier_init" in bulk
+    loop = bulk[bulk.index("  for (int s = 0, phase = 0; t.f < b;"):
+                bulk.index("struct PipeArgs")]
+    assert "mbar_wait(&full[s], phase);" in loop
+    assert "__syncthreads" not in loop
+    assert "pipe_bulk" not in str(_build.sources())
+
+
+def test_study_sass_gate_is_keyed_by_ring_depth():
+    """chip_smoke.py holds each K13 build to the shared loads of its own
+    ring depth (the BUFS template argument), capped or not, and K11 to
+    K4's one I2F and one F2I."""
+    import importlib.util
+
+    path = _build_root() / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_gate", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    lds = {n: cs._study_left(f"qim_roundtrip_pipe_kernel<2, ArithHopper, {n}, "
+                             f"{m}>")["LDS"]
+           for n in (2, 3, 4) for m in (1, 8)}
+    assert lds == {2: 143, 3: 239, 4: 311}
+    assert cs._study_left("qim_roundtrip_dual_kernel<2, ArithHopper, 1>") == {
+        "I2F": 1, "F2I": 1}
+    with pytest.raises(KeyError):
+        cs._study_left("qim_roundtrip_pipe_kernel<2, ArithHopper, 5, 1>")
+
+
+def _build_root():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parents[1]
+
+
 def test_default_kernels_are_the_six_stripe_templates():
     """sass.py's default rows are K1-K6, each a kernel template of
     csrc/qim_stripe.cu."""

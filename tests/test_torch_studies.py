@@ -26,6 +26,7 @@ Tolerances, each with its reason:
 import ast
 import functools
 import importlib.util
+import re
 import types
 from pathlib import Path
 
@@ -561,26 +562,33 @@ STRIPE_CAP_PLAIN = {
     "k4": sk.embed_and_extract_frames_packed_plain,
     "k5": lambda f, p, t, d, n: (sk.extract_frames_rows_plain(f, d, n),),
     "k6": sk.embed_and_extract_frames_rows_plain,
+    # K11 and K13 compute K4's function
+    **{k: sk.embed_and_extract_frames_packed_plain
+       for k in ("k11", "k13_2", "k13_3", "k13_4")},
 }
 
 
 @pytest.mark.parametrize("key", sorted(stripe_cap.KERNELS))
 def test_stripe_cap_kernels_name_the_library(key):
     """Each kernel that stripe_cap builds, holds and times: its template is
-    a kernel of csrc/qim_stripe.cu and a default row of studies/sass.py,
-    its cap's -D a default of that source (K5 has none, so --minb cannot
-    name it), its name a kernel of studies/bounds.py, and its wrapper,
-    called as stripe_cap calls it, gives its plain version's tuple on the
-    CPU."""
+    a kernel of its csrc/ source (K1-K6 of qim_stripe.cu, each a default
+    row of studies/sass.py; K11 of qim_study.cu, K13 of qim_pipe.cu), its
+    cap's -D a default of that source (one per ring depth for K13; K5 has
+    none, so --minb cannot name it), its name a kernel of studies/bounds.py,
+    and its wrapper, called as stripe_cap calls it, gives its plain
+    version's tuple on the CPU."""
     from stegotpu_torch.studies import bounds, sass
 
     name, template, fn, define = stripe_cap.KERNELS[key]
-    src = (REPO / "stegotpu_torch" / "csrc" / "qim_stripe.cu").read_text()
-    assert f"\n{template}(" in src and template in sass.DEFAULT_KERNELS
+    source = stripe_cap.SOURCES[key]
+    src = (REPO / "stegotpu_torch" / "csrc" / source).read_text()
+    assert f"\n{template}(" in src
+    assert (template in sass.DEFAULT_KERNELS) == (source == "qim_stripe.cu")
     if define is None:
-        assert key == "k5" and key not in stripe_cap.CAPPED
+        assert key == "k5"
+        assert key not in stripe_cap.CAPPED
     else:
-        assert f"#ifndef {define}\n#define {define} 8\n" in src
+        assert re.search(rf"#ifndef {define}\n#define {define} \d+\n", src)
         assert key in stripe_cap.CAPPED
     nbytes, flops = bounds.work(name, 2, 48, 240, NUM_AC, 48)
     assert nbytes > 0 and flops > 0

@@ -33,6 +33,7 @@ import torch
 from stegotpu_torch.config import BLOCK
 from stegotpu_torch.metrics import psnr
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
+from stegotpu_torch.utils.profiling import annotate
 
 
 def qim_embed_coeffs(ac: torch.Tensor, bits: torch.Tensor,
@@ -69,7 +70,8 @@ def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
     dev = frames.device
 
     xb = blockify(frames.to(torch.float32))  # (B, nb, 64)
-    k = kron_dct_tensor(dev)
+    with annotate("stegotpu_torch.host_wait"):  # a pageable copy
+        k = kron_dct_tensor(dev)
     y = xb @ k.T
     rem = (total_bits - bit_offset
            - torch.arange(b, dtype=torch.int64, device=dev)[:, None] * cap
@@ -97,7 +99,8 @@ def extract_frames(frames: torch.Tensor, delta: float,
     b = frames.shape[0]
     delta = float(np.float32(delta))
     xb = blockify(frames.to(torch.float32))
-    k = kron_dct_tensor(frames.device)
+    with annotate("stegotpu_torch.host_wait"):  # a pageable copy
+        k = kron_dct_tensor(frames.device)
     ac = (xb @ k.T)[..., 1 : 1 + num_ac]
     if not delta > 0:
         return torch.zeros((b, ac[0].numel()), dtype=torch.uint8,
@@ -125,18 +128,24 @@ def roundtrip_metrics(frames: torch.Tensor, stego: torch.Tensor,
     the frames' device: {psnr_db, bit_errors, payload_bits}
     (stegotpu/ops/qim.py:165-189). Bit errors count payload-carrying slots
     only: slot i of frame f is valid iff i < total_bits - f*C (the
-    remaining-bits threshold form)."""
-    b, cap = payload_bits.shape
-    dev = payload_bits.device
-    rem = int(total_bits) - torch.arange(b, dtype=torch.int64,
-                                         device=dev)[:, None] * cap
-    valid = torch.arange(cap, dtype=torch.int64, device=dev) < rem
-    return {
-        "psnr_db": psnr(frames, stego),
-        "bit_errors": (valid & (extracted != payload_bits)).sum(),
-        "payload_bits": torch.tensor(min(int(total_bits), b * cap),
-                                     dtype=torch.int64, device=dev),
-    }
+    remaining-bits threshold form).
+
+    While a profiler records, the call is the span ``stegotpu_torch.eval``;
+    the payload-bits scalar is a pageable copy to the device, which waits
+    for the device's queue: the span ``stegotpu_torch.host_wait``."""
+    with annotate("stegotpu_torch.eval"):
+        b, cap = payload_bits.shape
+        dev = payload_bits.device
+        rem = int(total_bits) - torch.arange(b, dtype=torch.int64,
+                                             device=dev)[:, None] * cap
+        valid = torch.arange(cap, dtype=torch.int64, device=dev) < rem
+        psnr_db = psnr(frames, stego)
+        bit_errors = (valid & (extracted != payload_bits)).sum()
+        with annotate("stegotpu_torch.host_wait"):
+            n_bits = torch.tensor(min(int(total_bits), b * cap),
+                                  dtype=torch.int64, device=dev)
+        return {"psnr_db": psnr_db, "bit_errors": bit_errors,
+                "payload_bits": n_bits}
 
 
 def embed_extract_evaluate(

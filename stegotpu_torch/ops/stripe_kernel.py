@@ -30,6 +30,10 @@ call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
 ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
 ``EXTRACT_ROWS_LAUNCHES`` and ``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel
 launches (and nothing else), so a run can show that it went through them.
+While a profiler records, every launch is the span
+``stegotpu_torch.launch.<entry point>`` and every wire-order unpack a
+wrapper runs on the device is ``stegotpu_torch.unpack``; a blocking wait
+on the device is ``stegotpu_torch.host_wait`` (utils/profiling.annotate).
 
 The plain versions compute the same sparse-delta form in f32: blockify,
 ``xb @ K^T`` on the slot columns of the Kronecker DCT matrix K, the QIM
@@ -61,6 +65,7 @@ import torch
 from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import _build
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
+from stegotpu_torch.utils.profiling import annotate
 
 EMBED_LAUNCHES = 0
 EXTRACT_LAUNCHES = 0
@@ -419,8 +424,9 @@ def _dct_on(device: torch.device) -> torch.Tensor:
     if device not in _DCT_ON_DEVICE:
         from stegotpu_torch.ops.dct import dct_matrix
 
-        _DCT_ON_DEVICE[device] = torch.tensor(dct_matrix(BLOCK, np.float32),
-                                              device=device)
+        with annotate("stegotpu_torch.host_wait"):  # a pageable copy
+            _DCT_ON_DEVICE[device] = torch.tensor(
+                dct_matrix(BLOCK, np.float32), device=device)
     return _DCT_ON_DEVICE[device]
 
 
@@ -429,7 +435,9 @@ def _launch(entry: str, *args) -> None:
     error (a refused launch never runs, and a later synchronize would not
     report it)."""
     lib = _build.load_library()
-    _build.check(lib, getattr(lib, entry)(*args), f"{entry} launch")
+    with annotate("stegotpu_torch.launch." + entry):
+        rc = getattr(lib, entry)(*args)
+    _build.check(lib, rc, f"{entry} launch")
 
 
 def _stream(device: torch.device) -> int:
@@ -502,8 +510,9 @@ def extract_frames(frames: torch.Tensor, delta: float,
     """K2 then the wire-order unpack on the same device: (B, C) uint8 bits,
     the signature of ops/qim.extract_frames."""
     _, h, w = _check_frames(frames)
-    return packed_rows_to_bits(extract_frames_packed(frames, delta, num_ac),
-                               h, w, num_ac, pick_stripe(h))
+    packed = extract_frames_packed(frames, delta, num_ac)
+    with annotate("stegotpu_torch.unpack"):
+        return packed_rows_to_bits(packed, h, w, num_ac, pick_stripe(h))
 
 
 def extract_frames_rows(frames: torch.Tensor, delta: float,
@@ -571,8 +580,9 @@ def embed_and_extract_frames(
     _, h, w = _check_frames(frames)
     stego, bpf, packed = embed_and_extract_frames_packed(
         frames, payload_bits, total_bits, delta, num_ac)
-    return stego, bpf, packed_rows_to_bits(packed, h, w, num_ac,
-                                           pick_stripe(h))
+    with annotate("stegotpu_torch.unpack"):
+        bits = packed_rows_to_bits(packed, h, w, num_ac, pick_stripe(h))
+    return stego, bpf, bits
 
 
 def embed_and_check_frames(
@@ -648,7 +658,9 @@ def embed_and_extract_frames_fused(
     _, h, w = _check_frames(frames)
     stego, bpf, rows = embed_and_extract_frames_rows(
         frames, payload_bits, total_bits, delta, num_ac)
-    return stego, bpf, rows_to_bits(rows, h, w, num_ac, pick_stripe(h))
+    with annotate("stegotpu_torch.unpack"):
+        bits = rows_to_bits(rows, h, w, num_ac, pick_stripe(h))
+    return stego, bpf, bits
 
 
 def embed_and_extract_frames_twokernel(

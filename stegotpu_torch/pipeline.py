@@ -43,6 +43,7 @@ from stegotpu_torch.metrics import psnr_np
 from stegotpu_torch.ops.dispatch import embed_fn, extract_fn, extract_packed_fn
 from stegotpu_torch.payload import (NeedMoreBits, PayloadParts, open_payload,
                                     parse_header_bits, parse_payload_bits)
+from stegotpu_torch.utils.profiling import annotate
 from stegotpu_torch.video import (FrameBudget, GraySwitch, Prefetcher,
                                   VideoReader, VideoWriter, force_avi_path)
 
@@ -191,7 +192,11 @@ def embed_image_in_video(
     slicing are unchanged because per-frame capacity is static.
     timer: optional object with a ``stage(name)`` context manager (the JAX
     package's utils.profiling.StageTimer shape) collecting decode_wait /
-    device_dispatch / device_readback / encode stage totals.
+    device_dispatch / device_readback / encode stage totals, and seal,
+    files_open (reader, writer, decode thread), files_close and decode
+    (timed on the Prefetcher's thread; inline, inside decode_wait, on a
+    single-core host). Extract's stages: decode_wait, decode,
+    device_dispatch, device_readback, files_open, files_close, unseal.
     frame_range / sealed_bits: segment embedding (see _embed_payload) — the
     resume / multi-host building blocks: embed only frames [lo, hi) with
     globally-consistent bit offsets, optionally against a pre-sealed
@@ -250,10 +255,11 @@ def _embed_payload(
     if sealed_bits is not None:
         all_bits = np.asarray(sealed_bits, dtype=np.uint8)
     else:
-        all_bits, _parts = payload_mod.seal_payload(
-            plaintext, width, height, receiver_pub_compressed, config.dims_bits,
-            rng=rng,
-        )
+        with _stage(timer, "seal"):
+            all_bits, _parts = payload_mod.seal_payload(
+                plaintext, width, height, receiver_pub_compressed,
+                config.dims_bits, rng=rng,
+            )
     total = int(all_bits.size)
     lo, hi = frame_range if frame_range is not None else (0, None)
     if lo < 0 or (hi is not None and hi <= lo):
@@ -263,7 +269,9 @@ def _embed_payload(
         raise ValueError(f"frame_range {frame_range} invalid: need "
                          "0 <= start < end")
 
-    with VideoReader(video_in) as reader:
+    with contextlib.ExitStack() as files:
+        with _stage(timer, "files_open"):
+            reader = files.enter_context(VideoReader(video_in))
         h8, w8 = reader.info.cropped
         if h8 == 0 or w8 == 0:
             return EmbedResult(False, None, total, 0, 0,
@@ -393,11 +401,16 @@ def _embed_payload(
         # (post-payload frames only need BGR).
         gray_switch = GraySwitch()
         try:
-            with VideoWriter(out_path, reader.info.fps, w8, h8,
-                             config.codec) as writer, \
-                    Prefetcher.maybe(
-                        reader.batches(batch_frames, mode="both",
-                                       gray_switch=gray_switch)) as prefetched:
+            with contextlib.ExitStack() as stream:
+                # the decode stage is timed on the Prefetcher's thread (on a
+                # single-core host, inline: inside decode_wait)
+                with _stage(timer, "files_open"):
+                    writer = stream.enter_context(VideoWriter(
+                        out_path, reader.info.fps, w8, h8, config.codec))
+                    prefetched = stream.enter_context(Prefetcher.maybe(
+                        _timed_iter(reader.batches(batch_frames, mode="both",
+                                                   gray_switch=gray_switch),
+                                    timer, "decode")))
                 for batch_bgr, gray in _timed_iter(prefetched, timer,
                                                    "decode_wait"):
                     n = batch_bgr.shape[0]
@@ -415,7 +428,8 @@ def _embed_payload(
                             with _stage(timer, "device_dispatch"):
                                 stego_dev, _bpf_dev, residual = run_embed_verified(
                                     gray, seg, remaining)
-                            residual = int(residual)
+                            with annotate("stegotpu_torch.host_wait"):
+                                residual = int(residual)
                             if residual:
                                 residual_total += residual
                                 log.error(
@@ -456,6 +470,8 @@ def _embed_payload(
                         break
                 if pending is not None:
                     drain(writer, pending)
+                with _stage(timer, "files_close"):
+                    stream.close()
         except OSError as e:
             # corrupt/truncated cover mid-decode: the same structured
             # failure contract extract_image_from_video honors for the
@@ -465,6 +481,8 @@ def _embed_payload(
                 False, out_path, total, cursor, frames_seen, first_orig,
                 first_stego, residual_total,
                 error=f"video read failed: {e}")
+        with _stage(timer, "files_close"):
+            files.close()
 
     if frame_range is None:
         success = cursor >= total
@@ -635,7 +653,9 @@ def extract_image_from_video(
     device: the torch device the extract kernel runs on (None: the card).
     """
     device = _resolve(device, mesh)
-    with VideoReader(stego_video) as reader:
+    with contextlib.ExitStack() as files:
+        with _stage(timer, "files_open"):
+            reader = files.enter_context(VideoReader(stego_video))
         h8, w8 = reader.info.cropped
         if h8 == 0 or w8 == 0:
             return ExtractResult(False, error="video dimensions too small")
@@ -729,7 +749,10 @@ def extract_image_from_video(
             return False
 
         budget = FrameBudget()
-        gen = reader.batches(batch_frames, mode="gray", budget=budget)
+        # decode: inline inside decode_wait in phase 1, on the Prefetcher's
+        # thread in phase 2
+        gen = _timed_iter(reader.batches(batch_frames, mode="gray",
+                                         budget=budget), timer, "decode")
         try:
             # mode='gray': the native decoder converts to gray in C++ during
             # decode; the 3x-larger BGR plane never reaches the host arrays.
@@ -805,14 +828,16 @@ def extract_image_from_video(
                       f"({buf.capacity_bits} bits read)",
                 frames_read=frames_read,
             )
+        with _stage(timer, "files_close"):
+            files.close()
 
     return finalize_extract(parts, receiver_private, output_image,
-                            frames_read)
+                            frames_read, timer=timer)
 
 
 def finalize_extract(parts: PayloadParts, receiver_private, output_image,
-                     frames_read: int, write_output: bool = True
-                     ) -> ExtractResult:
+                     frames_read: int, write_output: bool = True,
+                     timer=None) -> ExtractResult:
     """Shared payload finalization: decrypt, SHA3-verify (warn-only, like
     the reference), rebuild the image or return raw bytes, save.
 
@@ -820,9 +845,11 @@ def finalize_extract(parts: PayloadParts, receiver_private, output_image,
     (--procs) extract, and the multi-host dist-extract — these used to be
     three hand-maintained copies that had already drifted (the wrong-key
     hint and the SHA3 warning were missing from some). write_output=False
-    skips filesystem writes (dist-extract: only process 0 writes)."""
+    skips filesystem writes (dist-extract: only process 0 writes). timer:
+    optional stage timer; the decryption is its stage "unseal"."""
     try:
-        plaintext, hash_ok = open_payload(parts, receiver_private)
+        with _stage(timer, "unseal"):
+            plaintext, hash_ok = open_payload(parts, receiver_private)
     except ValueError as e:
         # e.g. garbage bits parsed into a structurally-plausible header
         # whose "compressed point" is not on the curve — keep the
@@ -894,8 +921,9 @@ def inspect_stego_header(
         # bound the scan: a non-stego video must not be decoded end to end
         limit = payload_mod.max_header_bits(cfg.dims_bits)
         for gray in reader.batches(1, mode="gray"):
-            bits = extract(_to_device(gray, device), float(cfg.delta),
-                           cfg.num_ac_coeffs).cpu().numpy().reshape(-1)
+            with annotate("stegotpu_torch.host_wait"):  # pageable copies
+                bits = extract(_to_device(gray, device), float(cfg.delta),
+                               cfg.num_ac_coeffs).cpu().numpy().reshape(-1)
             collected.append(bits)
             collected_bits += bits.size
             try:
@@ -946,14 +974,18 @@ def embed_payload_into_gray_frames(
     b, h, w = frames_gray.shape
     cap = config.frame_capacity_bits(h, w)
     seg = pad_bits(payload_bits[: b * cap], b * cap).reshape(b, cap)
+    with annotate("stegotpu_torch.host_wait"):  # pageable copies
+        frames_dev = _to_device(frames_gray, device)
+        seg_dev = _to_device(seg, device)
     stego, bpf = embed_fn(config.kernel, h, w, config.qim_precision)(
-        _to_device(frames_gray, device),
-        _to_device(seg, device),
+        frames_dev,
+        seg_dev,
         min(payload_bits.size, b * cap),
         float(config.delta),
         config.num_ac_coeffs,
     )
-    return stego.cpu().numpy(), bpf.cpu().numpy()
+    with annotate("stegotpu_torch.host_wait"):
+        return stego.cpu().numpy(), bpf.cpu().numpy()
 
 
 def extract_bits_from_gray_frames(
@@ -963,8 +995,10 @@ def extract_bits_from_gray_frames(
     (device: as for embed_image_in_video)."""
     device = resolve_device(device)
     _, h, w = frames_gray.shape
+    with annotate("stegotpu_torch.host_wait"):  # a pageable copy
+        frames_dev = _to_device(frames_gray, device)
     bits = extract_fn(config.kernel, h, w, config.qim_precision)(
-        _to_device(frames_gray, device), float(config.delta),
-        config.num_ac_coeffs
+        frames_dev, float(config.delta), config.num_ac_coeffs
     )
-    return bits.cpu().numpy().reshape(-1)
+    with annotate("stegotpu_torch.host_wait"):
+        return bits.cpu().numpy().reshape(-1)

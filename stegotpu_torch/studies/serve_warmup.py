@@ -13,15 +13,18 @@ the host clock into:
   video_probe      native.videoio.available(): the native FFmpeg library
                    loaded or, where it is missing, built or its build tried
   key              the public key loaded
-  decode_wait, device_dispatch, device_readback, encode
+  seal, files_open, decode_wait, device_dispatch, device_readback,
+  encode, files_close
                    the pipeline's own stages (its ``timer``)
   other            the rest of embed_image_in_video: the secret's decode,
-                   the seal, the writer's open and close, the PSNR
+                   the PSNR
 
 device_dispatch and device_readback hold the card's side (the copies to
-and from the card, the K1 launch); every other stage is the host's. Each
-row also names the top-level packages the request imported first. One
-JSON row a request; the first row names the card.
+and from the card, the K1 launch); every other stage is the host's. The
+pipeline's decode stage runs on its decode thread, beside these: the row
+gives it apart, as ``decode_thread_s``. Each row also names the
+top-level packages the request imported first. One JSON row a request;
+the first row names the card.
 
     python -m stegotpu_torch.studies.serve_warmup [--runs 2]
 """
@@ -81,11 +84,13 @@ def split_requests(body: dict, device, n: int = 2) -> list[dict]:
                                    batch_frames=8, device=device, timer=timer)
         end = time.perf_counter()
         stages = dict(timer.totals)
+        decode = stages.pop("decode", 0.0)
         stages["other"] = end - t0 - sum(stages.values())
         rows.append({
             "request": i + 1, "success": res.success,
             "total_s": end - t0,
             "stages_s": stages,
+            "decode_thread_s": decode,
             "imported": sorted({m.split(".")[0]
                                 for m in set(sys.modules) - before}),
         })

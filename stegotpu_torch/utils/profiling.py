@@ -6,7 +6,10 @@ argument). ``device_trace`` records the CPU and CUDA activity of a block
 with ``torch.profiler`` and writes a Chrome trace (open in Perfetto or
 chrome://tracing), where the JAX package writes a ``jax.profiler`` trace;
 ``annotate`` is ``torch.profiler.record_function``, a named range on that
-timeline.
+timeline, while a profiler records, and a shared no-op otherwise: the
+program's spans (names that start with ``stegotpu_torch.``) cost one flag
+test when nothing traces. ``StageTimer.stage`` opens one too, so a stage
+timed inside a trace sits on the trace's clock.
 """
 
 from __future__ import annotations
@@ -15,6 +18,12 @@ import contextlib
 import time
 from collections import defaultdict
 from pathlib import Path
+
+# read as a module attribute at call time: the profiler sets the flag on
+# start and clears it on stop
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -52,7 +61,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -67,7 +77,10 @@ class StageTimer:
 
 def annotate(name: str):
     """A named range on the profiler's timeline
-    (torch.profiler.record_function)."""
+    (torch.profiler.record_function) while a profiler records; otherwise
+    a shared nullcontext, and no record_function is made."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     import torch
 
     return torch.profiler.record_function(name)

@@ -637,9 +637,11 @@ def test_serve_warmup_splits_each_request(tmp_path):
     for r in rows:
         assert r["success"]
         assert set(r["stages_s"]) == {
-            "imports", "video_probe", "key", "decode_wait",
-            "device_dispatch", "device_readback", "encode", "other"}
+            "imports", "video_probe", "key", "seal", "files_open",
+            "decode_wait", "device_dispatch", "device_readback", "encode",
+            "files_close", "other"}
         assert sum(r["stages_s"].values()) == pytest.approx(r["total_s"])
+        assert r["decode_thread_s"] > 0
     assert rows[1]["imported"] == []
 
 

@@ -9,7 +9,8 @@ PyTorch built for CUDA:
 It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
 study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu, the witness of
-K7 and K8 in qim_kron_smem.cu), prints each kernel's registers and spills
+K7 and K8 in qim_kron_smem.cu, the round trip's evaluation in
+qim_eval.cu), prints each kernel's registers and spills
 (ptxas) and the opcode counts of K1-K8, K11, K13 and the witness from
 cuobjdump -sass of the library (failing if the Hopper arithmetic of any
 of K1-K6, K11 and K13 holds a conversion instruction or a shared load
@@ -20,8 +21,10 @@ beyond what its layout and its ring need), and runs fifteen phases:
 3.   the port's default embed -> extract round trip at 1920x1080 through
      the pipeline's entry points (the path of K1 and K2);
 4.   every kernel's time and its plain version's, with CUDA events
-     (K1-K8 and the witness of K7 and K8), and the share of their bound
-     that K1-K8 reach (K7's against the separable and the dense form);
+     (K1-K8, the witness of K7 and K8 and the evaluation kernel), and the
+     share of their bound that K1-K8 and the evaluation reach (K7's
+     against the separable and the dense form; the evaluation also at
+     3840x2160, B=128);
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -43,7 +46,9 @@ beyond what its layout and its ring need), and runs fifteen phases:
      and 2^-11, num_ac 1, 10 and 63, payloads full or ending mid-block or
      mid-frame, bit offset 0 and 13; then the path of the three kernels:
      the fused and the Kronecker round trips at 1080p with their quality
-     metrics (ops/qim.roundtrip_metrics), the oracle's
+     metrics (ops/qim.roundtrip_metrics: the evaluation kernel, held to
+     its plain version and to the exact PSNR, also on damaged bits), the
+     oracle's
      embed_extract_evaluate, and the device PSNR/SSIM against the host's;
      and the witness's path, the kron_ab study at 1080p B=8 and B=128;
 11.  the study kernels (stegotpu_torch/studies): K9 (the extract with
@@ -125,6 +130,7 @@ import contextlib
 import functools
 import importlib.util
 import json
+import math
 import re
 import sys
 import tempfile
@@ -390,6 +396,98 @@ def _device_ms(label: str, ms: float) -> float | None:
     return None if RETAKEN.get(label, (0, 0))[1] else ms
 
 
+def _exact_psnr(frames, stego) -> float:
+    """PSNR of the exact squared error: float64 sums, 8 frames at a time
+    (every partial sum an integer under 2^53)."""
+    sse = 0.0
+    for f in range(0, frames.shape[0], 8):
+        d = frames[f:f + 8].double() - stego[f:f + 8].double()
+        sse += float((d * d).sum())
+    return math.inf if sse == 0 else 10.0 * math.log10(
+        65025.0 * frames.numel() / sse)
+
+
+def _eval_against_plain(frames, stego, extracted, payload, total,
+                        label: str) -> tuple[int, int, float]:
+    """The evaluation kernel against its plain version on a damaged copy of
+    a round trip's bits: every 997th slot flipped, every 1999th a byte
+    2..255, and the payload ending 9 bytes before a 16-byte vector's end
+    (slots beside that end flipped on both sides). Bit errors and payload
+    bits must equal the plain version's exactly, and the errors must be
+    some; the PSNR at most one float32 rounding off the exact one.
+    Returns (bit errors, payload bits, PSNR gap in dB)."""
+    import numpy as np
+    import torch
+
+    from stegotpu_torch.ops import qim
+    from stegotpu_torch.ops import stripe_kernel as sk
+
+    bad = extracted.clone()
+    flat = bad.view(-1)
+    t = 16 * (min(total, flat.numel()) // 16) - 9
+    flip = torch.cat([torch.arange(5, flat.numel(), 997, device=flat.device),
+                      torch.tensor([t - 1, t, t + 1], device=flat.device)])
+    flat[flip] = flat[flip] ^ 1
+    odd = torch.arange(11, flat.numel(), 1999, device=flat.device)
+    flat[odd] = (odd % 254 + 2).to(torch.uint8)
+    m = sk.roundtrip_eval(frames, stego, bad, payload, t)
+    want = qim.roundtrip_metrics_plain(frames, stego, bad, payload, t)
+    errors, n = int(m["bit_errors"]), int(m["payload_bits"])
+    check(errors == int(want["bit_errors"]) and n == int(want["payload_bits"])
+          == t and errors > 0,
+          f"evaluation kernel at {label}: bit errors {errors} (plain "
+          f"{int(want['bit_errors'])}), payload bits {n} (plain "
+          f"{int(want['payload_bits'])}, want {t})")
+    exact = _exact_psnr(frames, stego)
+    gap = abs(float(m["psnr_db"]) - exact)
+    check(gap <= np.spacing(np.float32(exact)),
+          f"evaluation kernel at {label}: PSNR {float(m['psnr_db'])} is "
+          f"more than a float32 rounding off the exact {exact}")
+    return errors, n, gap
+
+
+def _eval_4k(dev, gpu: str) -> None:
+    """Phase 4's evaluation at the 4K cell's batch: the kernel and its plain
+    version, queued, on two 128-frame 3840x2160 round trips of K4 (4.9 GB,
+    so every call reads HBM), beside the kernel's byte bound; and on one of
+    them, damaged, held to the plain version and the exact PSNR
+    (_eval_against_plain)."""
+    import torch
+
+    from stegotpu_torch.ops import qim
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import bounds
+
+    b, h, w = 128, 2160, 3840
+    cap = (h // 8) * (w // 8) * NUM_AC
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    sets = []
+    for _ in range(2):
+        f = torch.randint(32, 224, (b, h, w), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        p = torch.randint(0, 2, (b, cap), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        s, _, ex = sk.embed_and_extract_frames(f, p, b * cap, DELTA, NUM_AC)
+        sets.append((f, s, ex, p, b * cap))
+    counts = _counts()
+    ms = {k: _queued_ms(_per_set(fn, sets), k, runs=10)
+          for k, fn in (("eval 4K", sk.roundtrip_eval),
+                        ("eval 4K plain", qim.roundtrip_metrics_plain))}
+    errors, n, gap = _eval_against_plain(*sets[0], "3840x2160 B=128")
+    _set_counts(counts)
+    bound, by = bounds.bound_ms(*bounds.work("roundtrip_eval", b, h, w,
+                                             NUM_AC, 120))
+    print(f"phase 4 evaluation roundtrip_eval 3840x2160 B=128 ({gpu}): "
+          f"device_ms {ms['eval 4K']:.4f} bound_ms {bound:.5f} ({by}) share "
+          f"{bound / ms['eval 4K']:.1%}; plain device_ms "
+          f"{ms['eval 4K plain']:.4f}; damaged bits: {errors} errors of {n} "
+          f"payload bits == plain, PSNR off the exact by {gap:.3g} dB",
+          flush=True)
+    del sets
+    torch.cuda.empty_cache()
+
+
 def _cold_sets(dev, rng) -> list:
     """(frames, payload, total) sets at 1920x1080, B=8, mid-range covers
     (_covers), enough of them to hold COLD_BYTES of frames and payload."""
@@ -412,7 +510,7 @@ WITNESS = {"kron_embed_smem": "kron_embed", "kron_extract_smem": "kron_extract"}
 COUNTERS = {
     "stripe_kernel": ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
                       "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
-                      "ROUNDTRIP_ROWS_LAUNCHES"),
+                      "ROUNDTRIP_ROWS_LAUNCHES", "EVAL_LAUNCHES"),
     "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
     "kron_ab": ("KRON_EMBED_SMEM_LAUNCHES", "KRON_EXTRACT_SMEM_LAUNCHES"),
     "extract_ablation": tuple(f"{v.upper()}_LAUNCHES" for v in ABLATIONS),
@@ -660,6 +758,15 @@ def main() -> int:
     }
     times = {k: _time_ms(_per_set(fn, sets)) for k, fn in calls.items()}
     queued = {k: _queued_ms(_per_set(fn, sets), k) for k, fn in calls.items()}
+    # the evaluation kernel, on each set's K4 round trip
+    eval_sets = [(f, *sk.embed_and_extract_frames(f, p, t, DELTA,
+                                                  NUM_AC)[::2], p, t)
+                 for f, p, t in sets]
+    for k, fn in (("roundtrip_eval", sk.roundtrip_eval),
+                  ("roundtrip_eval_plain", qim.roundtrip_metrics_plain)):
+        times[k] = _time_ms(_per_set(fn, eval_sets))
+        queued[k] = _queued_ms(_per_set(fn, eval_sets), k)
+    del eval_sets
     for k in WITNESS:  # the witness's plain version is its kernel's
         times[f"{k}_plain"] = times[f"{WITNESS[k]}_plain"]
         queued[f"{k}_plain"] = queued[f"{WITNESS[k]}_plain"]
@@ -682,6 +789,15 @@ def main() -> int:
         print(f"phase 4 {kn} {k} 1920x1080 B=8 ({gpu}): ms {times[k]:.4f} "
               f"device_ms {queued[k]:.4f} bound_ms {bound:.5f} ({by}) share "
               f"{bound / queued[k]:.1%}", flush=True)
+    bound, by = bounds.bound_ms(*bounds.work("roundtrip_eval", 8, 1080, 1920,
+                                             NUM_AC, 120))
+    print(f"phase 4 evaluation roundtrip_eval 1920x1080 B=8 ({gpu}): ms "
+          f"{times['roundtrip_eval']:.4f} device_ms "
+          f"{queued['roundtrip_eval']:.4f} bound_ms {bound:.5f} ({by}) share "
+          f"{bound / queued['roundtrip_eval']:.1%}; plain ms "
+          f"{times['roundtrip_eval_plain']:.4f} device_ms "
+          f"{queued['roundtrip_eval_plain']:.4f}", flush=True)
+    _eval_4k(dev, gpu)
     for k, kn in (("kron_embed", "K7"), ("kron_extract", "K8")):
         forms = [("", k)] + ([("dense ", "kron_embed_dense")]
                              if k == "kron_embed" else [])
@@ -761,7 +877,9 @@ def main() -> int:
                     ("stegotpu_torch/csrc/qim_pipe.cu",
                      "benchmarks/emitpipe_r4.py"), 119) for n in (2, 3, 4)},
                 **{k: (("stegotpu_torch/csrc/qim_kron_smem.cu", None), None)
-                   for k in WITNESS}}
+                   for k in WITNESS},
+                "roundtrip_eval": (("stegotpu_torch/csrc/qim_eval.cu", None),
+                                   None)}
     errs.update(embed=embed_err, extract_packed=extract_err)
     kernels = []
     for k, ((source, tpu_file), line) in replaces.items():
@@ -782,7 +900,11 @@ def main() -> int:
             "plain_device_ms": _device_ms(plain, queued[f"{k}_plain"]),
             **({"study": f"witness of {WITNESS[k]}: its first CUDA version, "
                          "held to it byte for byte; replaces no TPU kernel"}
-               if k in WITNESS else {})})
+               if k in WITNESS else {}),
+            **({"note": "replaces no TPU kernel: the JAX package evaluates "
+                        "in XLA code (stegotpu/ops/qim.py:165-189); "
+                        "max_abs_err is its largest PSNR gap in dB"}
+               if k == "roundtrip_eval" else {})})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
     from stegotpu_torch.studies import harness
@@ -1318,9 +1440,29 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
     seconds = time.perf_counter() - t0
     launches = {"roundtrip_rows": sk.ROUNDTRIP_ROWS_LAUNCHES,
                 "kron_embed": kk.KRON_EMBED_LAUNCHES,
-                "kron_extract": kk.KRON_EXTRACT_LAUNCHES}
+                "kron_extract": kk.KRON_EXTRACT_LAUNCHES,
+                "roundtrip_eval": sk.EVAL_LAUNCHES}
     check(all(v > 0 for v in launches.values()),
-          f"the round trips did not launch K6, K7 and K8: {launches}")
+          f"the round trips did not launch K6, K7, K8 and the evaluation "
+          f"kernel: {launches}")
+    # the evaluation kernel against its plain version, and its PSNR against
+    # the exact one (float64 sums of integers), at most a float32 rounding
+    # off; then on a damaged copy of K6's bits, where the count is not 0
+    gaps = []
+    for s, ex, m in ((s6, ex6, m6), (s7, ex7, m7)):
+        want = qim.roundtrip_metrics_plain(frames, s, ex, payload, total)
+        check(int(m["bit_errors"]) == int(want["bit_errors"])
+              and int(m["payload_bits"]) == int(want["payload_bits"]),
+              "evaluation kernel: bit errors or payload bits != plain")
+        exact = _exact_psnr(frames, s)
+        gaps.append(abs(float(m["psnr_db"]) - exact))
+        check(gaps[-1] <= np.spacing(np.float32(exact)),
+              f"evaluation kernel: PSNR {float(m['psnr_db'])} is more than "
+              f"a float32 rounding off the exact {exact}")
+    bad_errors, bad_n, gap = _eval_against_plain(frames, s6, ex6, payload,
+                                                 total, "1920x1080 B=8")
+    gaps.append(gap)
+    errs["roundtrip_eval"] = max(gaps)
     _, bpf_o, _, m_o = qim.embed_extract_evaluate(*args)
     for label, m in (("K6", m6), ("kron", m7), ("oracle", m_o)):
         check(int(m["bit_errors"]) == 0 and int(m["payload_bits"]) == total,
@@ -1345,8 +1487,11 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
           f"{p_host:.6f}) SSIM {q_dev:.7f} (host {q_host:.7f}); "
           f"ROUNDTRIP_ROWS_LAUNCHES={launches['roundtrip_rows']} "
           f"KRON_EMBED_LAUNCHES={launches['kron_embed']} "
-          f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']}; {seconds:.3f} s "
-          "host clock", flush=True)
+          f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']} "
+          f"EVAL_LAUNCHES={launches['roundtrip_eval']}; evaluation kernel "
+          f"== plain in bits (damaged K6 bits: {bad_errors} errors of "
+          f"{bad_n} payload bits), PSNR off the exact by at most "
+          f"{max(gaps):.3g} dB; {seconds:.3f} s host clock", flush=True)
     launches.update(_kron_witness(dev, rng))
     return errs, launches
 

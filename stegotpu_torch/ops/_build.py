@@ -156,6 +156,7 @@ ARGTYPES = {
     "stegotpu_copy": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p],
     "stegotpu_qim_roundtrip_pipe": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                                     _i, _i64, _i, _i, _f, _p],
+    "stegotpu_qim_eval": [_p, _p, _i64, _p, _p, _i64, _i64, _p, _p, _p, _i, _p],
 }
 
 

@@ -32,6 +32,7 @@ import torch
 
 from stegotpu_torch.config import BLOCK
 from stegotpu_torch.metrics import psnr
+from stegotpu_torch.ops import stripe_kernel
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 from stegotpu_torch.utils.profiling import annotate
 
@@ -130,22 +131,38 @@ def roundtrip_metrics(frames: torch.Tensor, stego: torch.Tensor,
     only: slot i of frame f is valid iff i < total_bits - f*C (the
     remaining-bits threshold form).
 
-    While a profiler records, the call is the span ``stegotpu_torch.eval``;
-    the payload-bits scalar is a pageable copy to the device, which waits
-    for the device's queue: the span ``stegotpu_torch.host_wait``."""
+    On the card one kernel computes them (ops/stripe_kernel.roundtrip_eval:
+    an exact integer squared error, nothing that waits for the host); there
+    all four tensors must be contiguous uint8 whose storage starts on a
+    16-byte boundary (fresh allocations do), and anything else raises
+    ValueError. On the CPU it is
+    roundtrip_metrics_plain, which takes any dtype and layout. While a
+    profiler records, the call is the span ``stegotpu_torch.eval``."""
     with annotate("stegotpu_torch.eval"):
-        b, cap = payload_bits.shape
-        dev = payload_bits.device
-        rem = int(total_bits) - torch.arange(b, dtype=torch.int64,
-                                             device=dev)[:, None] * cap
-        valid = torch.arange(cap, dtype=torch.int64, device=dev) < rem
-        psnr_db = psnr(frames, stego)
-        bit_errors = (valid & (extracted != payload_bits)).sum()
-        with annotate("stegotpu_torch.host_wait"):
-            n_bits = torch.tensor(min(int(total_bits), b * cap),
-                                  dtype=torch.int64, device=dev)
-        return {"psnr_db": psnr_db, "bit_errors": bit_errors,
-                "payload_bits": n_bits}
+        if frames.device.type == "cuda":
+            return stripe_kernel.roundtrip_eval(frames, stego, extracted,
+                                                payload_bits, total_bits)
+        return roundtrip_metrics_plain(frames, stego, extracted, payload_bits,
+                                       total_bits)
+
+
+def roundtrip_metrics_plain(frames: torch.Tensor, stego: torch.Tensor,
+                            extracted: torch.Tensor, payload_bits: torch.Tensor,
+                            total_bits: int) -> dict[str, torch.Tensor]:
+    """Plain PyTorch version of roundtrip_metrics, on any device: PSNR of
+    the float32 mean squared error, the bit errors by a mask of valid
+    slots."""
+    b, cap = payload_bits.shape
+    dev = payload_bits.device
+    rem = int(total_bits) - torch.arange(b, dtype=torch.int64,
+                                         device=dev)[:, None] * cap
+    valid = torch.arange(cap, dtype=torch.int64, device=dev) < rem
+    psnr_db = psnr(frames, stego)
+    bit_errors = (valid & (extracted != payload_bits)).sum()
+    n_bits = torch.full((), min(int(total_bits), b * cap), dtype=torch.int64,
+                        device=dev)
+    return {"psnr_db": psnr_db, "bit_errors": bit_errors,
+            "payload_bits": n_bits}
 
 
 def embed_extract_evaluate(

@@ -30,6 +30,9 @@ call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
 ``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
 ``EXTRACT_ROWS_LAUNCHES`` and ``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel
 launches (and nothing else), so a run can show that it went through them.
+Beside them, ``roundtrip_eval`` (csrc/qim_eval.cu, counted by
+``EVAL_LAUNCHES``) computes a round trip's PSNR and bit errors on the card
+in one pass; its plain version is ops/qim.roundtrip_metrics_plain.
 While a profiler records, every launch is the span
 ``stegotpu_torch.launch.<entry point>`` and every wire-order unpack a
 wrapper runs on the device is ``stegotpu_torch.unpack``; a blocking wait
@@ -73,6 +76,7 @@ CHECK_LAUNCHES = 0
 ROUNDTRIP_LAUNCHES = 0
 EXTRACT_ROWS_LAUNCHES = 0
 ROUNDTRIP_ROWS_LAUNCHES = 0
+EVAL_LAUNCHES = 0
 
 
 # --- layout helpers (numpy/int, mirrors of pallas_kernel.py) -----------------
@@ -672,3 +676,56 @@ def embed_and_extract_frames_twokernel(
     pallas_kernel.embed_and_extract_frames_pallas_twokernel (:1040)."""
     stego, bpf = embed_frames(frames, payload_bits, total_bits, delta, num_ac)
     return stego, bpf, extract_frames(stego, delta, num_ac)
+
+
+def _check_eval(frames: torch.Tensor, stego: torch.Tensor,
+                extracted: torch.Tensor, payload_bits: torch.Tensor) -> None:
+    """Raise unless frames and stego are (B, H, W) uint8 of one shape,
+    extracted and payload_bits (B, C) uint8 of one shape, all contiguous,
+    16-byte aligned and on one CUDA device."""
+    for a, b, ndim in ((frames, stego, 3), (extracted, payload_bits, 2)):
+        if (a.dtype != torch.uint8 or b.dtype != torch.uint8
+                or a.dim() != ndim or a.shape != b.shape):
+            raise ValueError(f"expected two {ndim}-dim uint8 tensors of one "
+                             f"shape, got {tuple(a.shape)} {a.dtype} and "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if extracted.shape[0] != frames.shape[0]:
+        raise ValueError(f"{frames.shape[0]} frames but {extracted.shape[0]} "
+                         "rows of bits")
+    tensors = (frames, stego, extracted, payload_bits)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the evaluation kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the evaluation kernel takes tensors whose storage "
+                         "starts on a 16-byte boundary")
+    dev = frames.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the evaluation kernel takes tensors on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+
+
+def roundtrip_eval(frames: torch.Tensor, stego: torch.Tensor,
+                   extracted: torch.Tensor, payload_bits: torch.Tensor,
+                   total_bits: int) -> dict[str, torch.Tensor]:
+    """The quality metrics of a round trip on the card, in one kernel launch
+    behind one memset: {psnr_db (float32), bit_errors (int64), payload_bits
+    (int64)}, 0-dim tensors on the frames' device, the results of
+    ops/qim.roundtrip_metrics_plain. The squared error is an exact integer
+    sum, so psnr_db is 10 log10(65025 N / sse) rounded once to float32;
+    bit_errors counts the flat slots below min(total_bits, B*C) whose bytes
+    differ. Nothing here waits for the device. Contiguous, 16-byte aligned
+    uint8 CUDA tensors only: raises on anything else."""
+    global EVAL_LAUNCHES
+    _check_eval(frames, stego, extracted, payload_bits)
+    b, cap = payload_bits.shape
+    dev = frames.device
+    # the kernel's sums: squared error, bit errors, ticket; then payload bits
+    acc = torch.empty(4, dtype=torch.int64, device=dev)
+    psnr_db = torch.empty((), dtype=torch.float32, device=dev)
+    _launch("stegotpu_qim_eval", frames.data_ptr(), stego.data_ptr(),
+            frames.numel(), extracted.data_ptr(), payload_bits.data_ptr(),
+            payload_bits.numel(), min(int(total_bits), b * cap),
+            acc.data_ptr(), psnr_db.data_ptr(), acc[3].data_ptr(), dev.index,
+            _stream(dev))
+    EVAL_LAUNCHES += 1
+    return {"psnr_db": psnr_db, "bit_errors": acc[1], "payload_bits": acc[3]}

@@ -68,6 +68,9 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         "ablation_full_notrunc": 4 * pixels + dct + rows,
         "copy": pixels + pixels,
         "dmaspec": pixels + payload + pixels + packed,
+        # frames and stego, extracted and payload bits; the sums, the
+        # ticket and the three results
+        "roundtrip_eval": 2 * pixels + 2 * payload + 4 * 8 + 4,
     }[kernel]
     flops = {
         # forward + inverse of the whole block, separable: two passes of
@@ -80,6 +83,7 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         "ablation_io_f4": rows,
         "copy": 0,
         "dmaspec": 0,
+        "roundtrip_eval": 0,                       # integer work only
     }.get(kernel)
     if flops is None:
         flops = blocks * 2 * 2 * rn * 64 * _TRANSFORMS[kernel]

@@ -8,12 +8,14 @@ so it runs on a machine with only PyTorch for CUDA and nvcc:
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from stegotpu_torch.config import StegoConfig
+from stegotpu_torch.ops import qim
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.pipeline import (embed_payload_into_gray_frames,
                                      extract_bits_from_gray_frames)
@@ -310,11 +312,13 @@ def test_fused_kernels_write_bits_per_frame(dev, b, h, w, num_ac):
 def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
     """One K1, K2, K4, K5 or K6 call is one device kernel and nothing
     else: the device timeline of torch.profiler holds no glue. One K3 call
-    is its kernel behind one memset of its counts."""
+    is its kernel behind one memset of its counts, and so is one call of
+    the evaluation kernel."""
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 240, 10)
     args = (frames, payload, total, 20.0, 10)
+    stego, bits = frames.flip(0), payload.flip(0)
     for name, fn, glue in (
             ("qim_embed_kernel", lambda: sk.embed_frames(*args), {}),
             ("qim_extract_packed_kernel",
@@ -326,7 +330,10 @@ def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
             ("qim_roundtrip_rows_kernel",
              lambda: sk.embed_and_extract_frames_rows(*args), {}),
             ("qim_embed_check_kernel",
-             lambda: sk.embed_and_check_frames(*args), {"gpu_memset": 1.0})):
+             lambda: sk.embed_and_check_frames(*args), {"gpu_memset": 1.0}),
+            ("qim_eval_kernel",
+             lambda: sk.roundtrip_eval(frames, stego, payload, bits, total),
+             {"gpu_memset": 1.0})):
         summ = dr.parse_device_timeline(
             dr._trace(fn, 4, tmp_path / f"{name}.json"), 4)
         assert name in summ["kernel_name"], summ
@@ -575,6 +582,97 @@ def test_metrics_on_card(dev):
                                                     s[0].cpu().numpy())) < 1e-3
     assert abs(float(ssim_batch(a, s)[0]) - ssim_np(a[0].cpu().numpy(),
                                                     s[0].cpu().numpy())) < 1e-4
+
+
+def _f64_psnr(frames, stego) -> float:
+    """PSNR of the exact squared error: float64 sums on the card, 8 frames
+    at a time (every partial sum an integer under 2^53)."""
+    sse = 0.0
+    for f in range(0, frames.shape[0], 8):
+        d = frames[f:f + 8].double() - stego[f:f + 8].double()
+        sse += float((d * d).sum())
+    return math.inf if sse == 0 else 10.0 * math.log10(
+        65025.0 * frames.numel() / sse)
+
+
+# where the payload ends, from one frame's bit count `cap` and the batch's
+# B*cap: at 0, below 0, mid-frame, inside a 16-byte vector, past the batch
+EVAL_TOTALS = {"zero": lambda cap, n: 0, "negative": lambda cap, n: -5,
+               "mid-frame": lambda cap, n: cap + cap // 2 + 3,
+               "in a vector": lambda cap, n: 16 * 5 + 7,
+               "beyond": lambda cap, n: n + 10 ** 6}
+
+
+def _eval_inputs(dev, kind, b, h, w, cap):
+    """(frames, stego, extracted, payload): K4's round trip of mid-range 4K
+    frames (`roundtrip`), random stacks and bytes 0..255 in the bits
+    (`bytes`), or identical stacks (`identical`)."""
+    rng = np.random.default_rng(17)
+    frames = torch.from_numpy(rng.integers(16, 240, (b, h, w), np.uint8))
+    payload = torch.from_numpy(rng.integers(0, 256 if kind == "bytes" else 2,
+                                            (b, cap), np.uint8)).to(dev)
+    frames = frames.to(dev)
+    if kind == "roundtrip":
+        stego, _, extracted = sk.embed_and_extract_frames(
+            frames, payload, b * cap, 20.0, 10)
+    elif kind == "identical":
+        stego, extracted = frames.clone(), payload.clone()
+    else:
+        stego = torch.from_numpy(rng.integers(0, 256, (b, h, w),
+                                              np.uint8)).to(dev)
+        extracted = torch.from_numpy(rng.integers(0, 256, (b, cap),
+                                                  np.uint8)).to(dev)
+    return frames, stego, extracted, payload
+
+
+@pytest.mark.parametrize("total", list(EVAL_TOTALS))
+@pytest.mark.parametrize("kind,b,h,w,cap", [
+    ("roundtrip", 8, 2160, 3840, 1_296_000),
+    ("bytes", 3, 17, 29, 37),       # no stack or bit array a whole vector
+    ("bytes", 5, 9, 7, 41),
+    ("identical", 2, 48, 240, 1800)])
+def test_eval_kernel_matches_plain_and_float64(dev, kind, b, h, w, cap,
+                                               total):
+    """The evaluation kernel (ops/stripe_kernel.roundtrip_eval, through
+    ops/qim.roundtrip_metrics) against the plain version: bit errors and
+    payload bits equal, the PSNR one float32 rounding of float64's exact
+    one at most (inf for identical stacks); one launch a call; 0-dim
+    results on the card."""
+    frames, stego, extracted, payload = _eval_inputs(dev, kind, b, h, w, cap)
+    t = EVAL_TOTALS[total](cap, b * cap)
+    before = sk.EVAL_LAUNCHES
+    m = qim.roundtrip_metrics(frames, stego, extracted, payload, t)
+    assert sk.EVAL_LAUNCHES == before + 1
+    want = qim.roundtrip_metrics_plain(frames, stego, extracted, payload, t)
+    assert [(v.dim(), v.dtype, v.device) for v in m.values()] == [
+        (0, torch.float32, dev), (0, torch.int64, dev), (0, torch.int64, dev)]
+    assert int(m["bit_errors"]) == int(want["bit_errors"])
+    assert int(m["payload_bits"]) == int(want["payload_bits"]) == min(
+        t, b * cap)
+    ref = _f64_psnr(frames, stego)
+    if math.isinf(ref):
+        assert float(m["psnr_db"]) == math.inf == float(want["psnr_db"])
+    else:
+        assert abs(float(m["psnr_db"]) - ref) <= np.spacing(np.float32(ref))
+
+
+@pytest.mark.parametrize("b", [8, 1152])
+def test_eval_kernel_sums_in_64_bits(dev, b):
+    """All-0 against all-255 4K frames, 65,025 a pixel: the squared error
+    passes 2^32 at 8 frames (in a CTA and in all), and at 1,152 frames
+    (9.55 GB a stack, past 2^31 bytes) it would pass 2^32 in each thread of
+    the kernel's grid (132 SMs x 4 CTAs x 256 threads: 70,650 B, 4.6e9 a
+    thread). The PSNR is 0 dB exactly, the bit errors every slot."""
+    h, w, cap = 2160, 3840, 16
+    zeros = torch.zeros((b, h, w), dtype=torch.uint8, device=dev)
+    full = torch.full_like(zeros, 255)
+    bits = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
+    for a, s in ((zeros, full), (full, zeros)):
+        m = qim.roundtrip_metrics(a, s, bits, bits + 1, b * cap)
+        assert float(m["psnr_db"]) == 0.0
+        assert int(m["bit_errors"]) == b * cap
+    del zeros, full
+    torch.cuda.empty_cache()
 
 
 # --- the study kernels K9-K12 (stegotpu_torch/studies) -------------------------

@@ -93,3 +93,8 @@ def test_work_counts_of_a_4k_frame():
     assert work.work("roundtrip_eval", 2160, 3840, 10)[0] == nbytes
     assert work.work("file_embed", 720, 1280, 3) == (2 * 921_600 + 43_200,
                                                      2 * 14_400 * 256)
+
+
+def test_a_step_without_a_file_names_the_file_to_add():
+    with pytest.raises(KeyError, match="add stegobench/steps/no_such_step.py"):
+        work.work("no_such_step", 2160, 3840, 10)

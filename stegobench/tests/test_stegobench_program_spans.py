@@ -60,7 +60,7 @@ def parent_trace() -> dict:
                             if not e["name"].startswith("stegotpu_torch.")]}
 
 
-def _record(trace=None, stages=None) -> Record:
+def program_record(trace=None, stages=None) -> Record:
     rec = Record("roundtrip", 2160, 3840, 10, t0=10.0, t_end=12.0)
     rec.jobs = [Job(10.0 + 0.5 * i, 10.5 + 0.5 * i, 48) for i in range(4)]
     rec.stages = dict(stages or {})
@@ -73,12 +73,12 @@ def _read(name, rec):
 
 
 def test_host_wait_share_clips_to_the_window_and_counts_nesting_once():
-    got = _read("host_wait_share_pct.stream", _record(program_trace()))
+    got = _read("host_wait_share_pct.stream", program_record(program_trace()))
     assert got == pytest.approx(73.0)
 
 
 def test_host_wait_share_is_zero_where_the_program_never_waits():
-    rec = _record(program_trace(waits=False))
+    rec = program_record(program_trace(waits=False))
     assert _read("host_wait_share_pct.stream", rec) == 0.0
 
 
@@ -88,11 +88,11 @@ def test_host_wait_share_only_counts_spans_of_the_window():
         e for e in trace["traceEvents"]
         if not e["name"].startswith("stegotpu_torch.")]
     trace["traceEvents"].append(_span("stegotpu_torch.host_wait", 2100, 50))
-    assert _read("host_wait_share_pct.stream", _record(trace)) is None
+    assert _read("host_wait_share_pct.stream", program_record(trace)) is None
 
 
 def test_unpack_share_reads_what_the_unpack_span_launched():
-    got = _read("unpack_share_pct.stream", _record(program_trace()))
+    got = _read("unpack_share_pct.stream", program_record(program_trace()))
     assert got == pytest.approx(100 * 400 / 600)
 
 
@@ -101,22 +101,22 @@ def test_unpack_share_ignores_a_span_of_another_thread():
     for e in trace["traceEvents"]:
         if e["name"] == "stegotpu_torch.unpack":
             e["tid"] = 2
-    assert _read("unpack_share_pct.stream", _record(trace)) is None
+    assert _read("unpack_share_pct.stream", program_record(trace)) is None
 
 
 @pytest.mark.parametrize("name", ["unpack_share_pct.stream",
                                   "host_wait_share_pct.stream"])
 def test_span_readers_read_nothing_from_a_program_without_spans(name):
-    assert _read(name, _record(parent_trace())) is None
+    assert _read(name, program_record(parent_trace())) is None
 
 
 @pytest.mark.parametrize("name", ["unpack_share_pct.stream",
                                   "host_wait_share_pct.stream",
                                   "decode_share_pct.embed"])
 def test_readers_read_nothing_without_a_trace_or_stage(name):
-    assert _read(name, _record()) is None
+    assert _read(name, program_record()) is None
 
 
 def test_decode_share_over_job_time():
-    rec = _record(stages={"decode": 0.3, "decode_wait": 0.5})
+    rec = program_record(stages={"decode": 0.3, "decode_wait": 0.5})
     assert _read("decode_share_pct.embed", rec) == pytest.approx(15.0)

@@ -1,5 +1,10 @@
 """The timeline reader and every metric reader on a canned trace and a
-canned stage record."""
+canned stage record.
+
+A metric's expected reading is `expected()`'s where that names it, else in
+a file of its own, stegobench/tests/expected/<metric>.py, which defines
+``expected(record)`` and may define ``record()``, a canned record of its
+own; so a metric is added as files and entries alone."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from stegobench.timeline import WINDOW_SPAN, Timeline
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+EXPECTED = Path("stegobench") / "tests" / "expected"
 
 
 def _x(cat, name, ts, dur, **args):
@@ -57,6 +63,43 @@ def test_timeline_reads_the_window():
                     "sync": pytest.approx(380e-6)}
 
 
+def nested_trace() -> dict:
+    """A 1000 us window whose spans nest: dispatch (from before the window)
+    launches a 170 us kernel; the eval stage holds stegotpu_torch.eval,
+    which holds the launch span of a 100 us kernel; then sync, then no
+    span for the last 100 us."""
+    return {"traceEvents": [
+        _x("user_annotation", WINDOW_SPAN, 1000, 1000),
+        _x("user_annotation", "dispatch", 950, 150),
+        _x("cuda_runtime", "cudaLaunchKernel", 1010, 5, correlation=1),
+        _x("kernel", "qim_roundtrip_packed_kernel", 1050, 170, correlation=1),
+        _x("user_annotation", "eval", 1100, 600),
+        _x("user_annotation", "stegotpu_torch.eval", 1150, 500),
+        _x("user_annotation", "stegotpu_torch.launch.stegotpu_qim_eval",
+           1200, 50),
+        _x("cuda_runtime", "cudaLaunchKernel", 1210, 5, correlation=2),
+        _x("kernel", "qim_eval_kernel", 1500, 100, correlation=2),
+        _x("user_annotation", "sync", 1700, 200),
+    ]}
+
+
+def test_idle_by_span_counts_each_gap_once_at_the_innermost_span():
+    tl = Timeline(nested_trace())
+    idle = tl.idle_by_span(None)
+    assert sum(v for _, v in idle) == pytest.approx(tl.window_s - tl.busy_s)
+    # idle: 1000-1050 dispatch; 1220-1250 the launch span; 1250-1500 and
+    # 1600-1650 stegotpu_torch.eval; 1650-1700 eval; 1700-1900 sync
+    assert dict(idle) == {"dispatch": pytest.approx(50e-6),
+                          "stegotpu_torch.launch.stegotpu_qim_eval":
+                              pytest.approx(30e-6),
+                          "stegotpu_torch.eval": pytest.approx(300e-6),
+                          "eval": pytest.approx(50e-6),
+                          "sync": pytest.approx(200e-6),
+                          "no_span": pytest.approx(100e-6)}
+    assert [k for k, _ in tl.idle_by_span(2)] == ["stegotpu_torch.eval",
+                                                   "sync"]
+
+
 def test_timeline_needs_its_window():
     with pytest.raises(ValueError):
         Timeline({"traceEvents": []})
@@ -74,7 +117,7 @@ def _record(step="roundtrip", traced=True) -> Record:
     return rec
 
 
-def expected(name: str, rec: Record):
+def expected(rec: Record) -> dict:
     durations = sorted(j.t1 - j.t0 for j in rec.jobs)
     job_s = sum(durations)
     least = 16 * work.work(rec.step, 2160, 3840, 10)[0] / work.H100_HBM_BYTES_PER_S
@@ -85,7 +128,29 @@ def expected(name: str, rec: Record):
         "device_idle_pct.stream": 40.0,
         "kernels_roofline_pct.stream": 100 * least / 600e-6,
         "eval_share_pct.stream": 100 * 400 / 600,
-    }[name]
+    }
+
+
+def check_reader(root: Path, name: str) -> None:
+    """Metric `name`'s reader in the benchmark at `root` reads what its
+    canned record should give: `expected()`'s value where that names the
+    metric, else root/stegobench/tests/expected/<name>.py's."""
+    rec = _record()
+    table = expected(rec)
+    if name in table:
+        want = table[name]
+    else:
+        path = root / EXPECTED / f"{name}.py"
+        if not path.exists():
+            pytest.fail(f"no expected reading for {name}: add "
+                        f"{(EXPECTED / f'{name}.py').as_posix()} defining "
+                        "expected(record)")
+        mod = manifest.load_module(
+            path, "stegobench_expected_" + name.replace(".", "_"))
+        if hasattr(mod, "record"):
+            rec = mod.record()
+        want = mod.expected(rec)
+    assert manifest.reader(root, name)(rec) == pytest.approx(want)
 
 
 METRICS = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
@@ -93,8 +158,7 @@ METRICS = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
 
 @pytest.mark.parametrize("name", METRICS)
 def test_each_reader_on_a_canned_record(name):
-    rec = _record()
-    assert manifest.reader(ROOT, name)(rec) == pytest.approx(expected(name, rec))
+    check_reader(ROOT, name)
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in BENCH["per_layer"]

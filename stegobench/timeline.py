@@ -105,11 +105,13 @@ class Timeline:
             tot[name[:120]] += (b - a) / 1e6
         return [[k, v] for k, v in tot.most_common(n)]
 
-    def idle_by_span(self, n: int = 10) -> list[list]:
-        """[host span, seconds]: the window's idle device time, each gap
-        split by the benchmark's host spans that overlap it (the rest is
-        "no_span"), summed by span name, largest first. The spans are the
-        benchmark's stages, which follow one another and do not nest."""
+    def idle_by_span(self, n: int | None = 10) -> list[list]:
+        """[host span, seconds]: the window's idle device time by the host
+        span it fell in, summed by span name, largest first (`n` of them;
+        None: all). Each gap is split at the spans' edges and each piece
+        goes to the innermost span that covers it, the one that started
+        last (spans on one thread nest: stage > stegotpu_torch.* >
+        launch.*), or to "no_span"; so the values sum to window_s - busy_s."""
         gaps, prev = [], self.t0
         for a, b in self.busy():
             if a > prev:
@@ -117,21 +119,30 @@ class Timeline:
             prev = max(prev, b)
         if self.t1 > prev:
             gaps.append((prev, self.t1))
+        # (start, end, innermost span) from t0 on: the spans' edges in time
+        # order, a close before an open at the same time
+        edges = sorted(e for i, (a, b, _, _) in enumerate(self.spans)
+                       if b > a for e in ((a, 1, i), (b, 0, i)))
+        pieces, active, at = [], [], self.t0   # active: (start, -end, i)
+        for t, opens, i in edges:
+            if t > at:
+                pieces.append((at, t, self.spans[active[-1][2]][2]
+                               if active else "no_span"))
+                at = t
+            a, b = self.spans[i][:2]
+            if opens:
+                bisect.insort(active, (a, -b, i))
+            else:
+                del active[bisect.bisect_left(active, (a, -b, i))]
+        pieces.append((at, max(at, self.t1), "no_span"))
         tot: collections.Counter = collections.Counter()
-        spans = sorted(self.spans)
-        first = 0
+        j = 0
         for ga, gb in gaps:
-            covered = 0.0
-            while first < len(spans) and spans[first][1] <= ga:
-                first += 1
-            for k in range(first, len(spans)):
-                a, b, name, _ = spans[k]
+            while pieces[j][1] <= ga:
+                j += 1
+            for k in range(j, len(pieces)):
+                a, b, name = pieces[k]
                 if a >= gb:
                     break
-                o = min(b, gb) - max(a, ga)
-                if o > 0:
-                    tot[name] += o / 1e6
-                    covered += o
-            if gb - ga > covered:
-                tot["no_span"] += (gb - ga - covered) / 1e6
+                tot[name] += (min(b, gb) - max(a, ga)) / 1e6
         return [[k, v] for k, v in tot.most_common(n)]

@@ -8,10 +8,21 @@ of the separable 8-point DCT over the slot rows a block needs (num_ac // 8
 + 1 of its 8 rows), the least work of the function. The 256-byte DCT matrix
 and the 4-byte bits per frame are left out: under a millionth of a step.
 
+A step this file does not count is a file of its own,
+``stegobench/steps/<step>.py``, defining ``work(h, w, num_ac) -> (bytes,
+operations)`` of one frame by the same rules; like this file it imports
+nothing of the program.
+
 Peaks: NVIDIA H100 SXM data sheet, dense, at its full 700 W limit.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
+
+from stegobench import manifest
+
+STEPS = Path(__file__).resolve().parent / "steps"
 
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
@@ -33,7 +44,8 @@ def work(step: str, h: int, w: int, num_ac: int) -> tuple[int, int]:
       written; a third transform reads the stego back;
     - roundtrip_eval: roundtrip, whose PSNR and bit-error count reuse what
       the step already holds (three operations a pixel, two a slot); their
-      scalars are under a millionth of the bytes.
+      scalars are under a millionth of the bytes;
+    - any other step: the work(h, w, num_ac) of stegobench/steps/<step>.py.
     """
     pixels = h * w
     cap = (h // 8) * (w // 8) * num_ac
@@ -44,7 +56,13 @@ def work(step: str, h: int, w: int, num_ac: int) -> tuple[int, int]:
         return 2 * pixels + 2 * cap, 3 * t
     if step == "roundtrip_eval":
         return 2 * pixels + 2 * cap, 3 * t + 3 * pixels + 2 * cap
-    raise KeyError(f"no work count for step {step!r}")
+    path = STEPS / f"{step}.py"
+    if not path.exists():
+        raise KeyError(f"no work count for step {step!r}: add "
+                       f"stegobench/steps/{step}.py defining work(h, w, num_ac)")
+    mod = manifest.load_module(path,
+                               "stegobench_step_" + step.replace(".", "_"))
+    return mod.work(h, w, num_ac)
 
 
 def bound_s(nbytes: float, flops: float) -> tuple[float, str]:

@@ -222,17 +222,24 @@ def embed_data_in_video(
     receiver_pub_compressed: bytes,
     config: StegoConfig = StegoConfig(),
     batch_frames: int = 8,
+    rng=None,
+    timer=None,
     device=None,
 ) -> EmbedResult:
     """Embed arbitrary encrypted bytes (extension mode, not in the reference).
 
     Uses the same wire format with the RAW_DATA_DIMS marker in the dims
     header; extraction auto-detects it and returns the raw bytes.
+
+    rng, timer and device: as for embed_image_in_video (a deterministic
+    crypto stage for test builds; the stage timer's seal / files_open /
+    decode / decode_wait / device_dispatch / device_readback / encode /
+    files_close totals; the torch device, None for the card).
     """
     w, h = payload_mod.RAW_DATA_DIMS
     return _embed_payload(video_in, data, w, h, video_out,
                           receiver_pub_compressed, config, batch_frames,
-                          device=device)
+                          rng=rng, timer=timer, device=device)
 
 
 def _embed_payload(

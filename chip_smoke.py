@@ -10,11 +10,12 @@ It builds the CUDA kernels from stegotpu_torch/csrc (one nvcc per source,
 all started together: K1-K6 in qim_stripe.cu, K7-K8 in qim_kron.cu, the
 study kernels K9-K12 in qim_study.cu, K13 in qim_pipe.cu, the witness of
 K7 and K8 in qim_kron_smem.cu, the round trip's evaluation in
-qim_eval.cu), prints each kernel's registers and spills
-(ptxas) and the opcode counts of K1-K8, K11, K13 and the witness from
-cuobjdump -sass of the library (failing if the Hopper arithmetic of any
-of K1-K6, K11 and K13 holds a conversion instruction or a shared load
-beyond what its layout and its ring need), and runs fifteen phases:
+qim_eval.cu, the wire-order unpack in qim_unpack.cu), prints each kernel's
+registers and spills (ptxas) and the opcode counts of K1-K8, K11, K13 and
+the witness from cuobjdump -sass of the library (failing if the Hopper
+arithmetic of any of K1-K6, K11 and K13 holds a conversion instruction or
+a shared load beyond what its layout and its ring need), and runs fifteen
+phases:
 
 1-2. K1 (embed) and K2 (packed extract) against their plain PyTorch
      versions at 1920x1080 and 1360x768;
@@ -24,7 +25,9 @@ beyond what its layout and its ring need), and runs fifteen phases:
      (K1-K8, the witness of K7 and K8 and the evaluation kernel), and the
      share of their bound that K1-K8 and the evaluation reach (K7's
      against the separable and the dense form; the evaluation also at
-     3840x2160, B=128);
+     3840x2160, B=128), and the wire-order unpack kernel against its
+     plain version byte for byte, its time beside its bound and the plain
+     version's at 3840x2160 B=128 and 1920x1080 B=8;
 5.   the file-to-file embed and extract, where cryptography, Pillow and a
      video backend are installed;
 6.   K3 (embed + check), K4 (fused round trip) and K5 (unpacked extract)
@@ -205,6 +208,8 @@ def _ptxas_summary(log: str) -> str:
                 "_small_delta" if args[1].endswith("SmallDelta") else "")
             if rn <= 2 and args[3] == "1":  # the build without the cap
                 name += "_uncapped"
+        elif kind == "unpack":  # <RN, STORE>: the store width in bytes
+            name = f"unpack_st{args[1]}"
         elif kind == "ablation":  # <RN, V>
             name = f"ablation_{ABLATIONS[int(args[1])]}"
         elif len(args) >= 2:  # K1/K3/K4/K6 <RN, Arith, MINB>, K2/K5 <RN, Arith>
@@ -488,6 +493,65 @@ def _eval_4k(dev, gpu: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _unpack(dev, gpu: str, times: dict, queued: dict) -> dict[str, int]:
+    """Phase 4's wire-order unpack (ops/stripe_kernel.packed_rows_to_bits,
+    csrc/qim_unpack.cu) and its plain version, queued, at the 4K cells'
+    3840x2160 B=128 (two input sets: 199 MB in and out a call, four times
+    the L2) and at 1920x1080 B=8 (enough sets that a rotation moves
+    COLD_BYTES, so every call reads HBM), beside the kernel's byte bound
+    (slot rows read once, wire bits written once); the 1080p times go to
+    the kernels line. The kernel's bits equal the plain version's on every
+    set (random packed bytes, non-slot bits and padding rows included).
+    Returns {"unpack_packed": bytes that differ}."""
+    import torch
+
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.studies import bounds
+
+    counts = _counts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    fns = {"unpack_packed": sk.packed_rows_to_bits,
+           "unpack_packed_plain": sk.packed_rows_to_bits_plain}
+    wrong = 0
+    for b, h, w in ((128, 2160, 3840), (8, 1080, 1920)):
+        stripe = sk.pick_stripe(h)
+        rows = (h // stripe) * sk._rows_pad(stripe, sk.rows_per_block(NUM_AC))
+        nbytes, flops = bounds.work("unpack_packed", b, h, w, NUM_AC, stripe)
+        n_sets = max(2, -(-COLD_BYTES // nbytes))
+        pool = torch.randint(0, 256, (n_sets, b, rows, w // 8), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        sets = [(pool[i], h, w, NUM_AC, stripe) for i in range(n_sets)]
+        runs = max(10, n_sets)
+        # the 1080p readings are the kernels line's: their labels its keys
+        ms = {k: _queued_ms(_per_set(fn, sets), k if b == 8 else f"{k} 4K",
+                            runs=runs) for k, fn in fns.items()}
+        for s in sets:
+            wrong += int((sk.packed_rows_to_bits(*s)
+                          != sk.packed_rows_to_bits_plain(*s)).sum())
+        check(wrong == 0, f"unpack kernel at {w}x{h} B={b}: {wrong} bytes "
+              "differ from the plain version")
+        bound, by = bounds.bound_ms(nbytes, flops)
+        store = sk.unpack_store_width(sk.packed_rows_to_bits(*sets[0]), w,
+                                      NUM_AC)
+        if b == 8:
+            for k, fn in fns.items():
+                times[k] = _time_ms(_per_set(fn, sets))
+                queued[k] = ms[k]
+        print(f"phase 4 unpack unpack_packed {w}x{h} B={b} ({gpu}): device_ms "
+              f"{ms['unpack_packed']:.4f} bound_ms {bound:.5f} ({by}; "
+              f"{nbytes} B) share {bound / ms['unpack_packed']:.1%}; plain "
+              f"device_ms {ms['unpack_packed_plain']:.4f} "
+              f"({ms['unpack_packed_plain'] / ms['unpack_packed']:.1f}x); "
+              f"store width {store}; "
+              f"== plain on {n_sets} sets of random packed rows, "
+              f"{n_sets * nbytes >> 20} MiB in and out a rotation", flush=True)
+        del pool, sets
+        torch.cuda.empty_cache()
+    _set_counts(counts)
+    return {"unpack_packed": wrong}
+
+
 def _cold_sets(dev, rng) -> list:
     """(frames, payload, total) sets at 1920x1080, B=8, mid-range covers
     (_covers), enough of them to hold COLD_BYTES of frames and payload."""
@@ -510,7 +574,8 @@ WITNESS = {"kron_embed_smem": "kron_embed", "kron_extract_smem": "kron_extract"}
 COUNTERS = {
     "stripe_kernel": ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
                       "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
-                      "ROUNDTRIP_ROWS_LAUNCHES", "EVAL_LAUNCHES"),
+                      "ROUNDTRIP_ROWS_LAUNCHES", "EVAL_LAUNCHES",
+                      "UNPACK_LAUNCHES"),
     "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
     "kron_ab": ("KRON_EMBED_SMEM_LAUNCHES", "KRON_EXTRACT_SMEM_LAUNCHES"),
     "extract_ablation": tuple(f"{v.upper()}_LAUNCHES" for v in ABLATIONS),
@@ -798,6 +863,7 @@ def main() -> int:
           f"{times['roundtrip_eval_plain']:.4f} device_ms "
           f"{queued['roundtrip_eval_plain']:.4f}", flush=True)
     _eval_4k(dev, gpu)
+    errs4 = _unpack(dev, gpu, times, queued)
     for k, kn in (("kron_embed", "K7"), ("kron_extract", "K8")):
         forms = [("", k)] + ([("dense ", "kron_embed_dense")]
                              if k == "kron_embed" else [])
@@ -879,8 +945,10 @@ def main() -> int:
                 **{k: (("stegotpu_torch/csrc/qim_kron_smem.cu", None), None)
                    for k in WITNESS},
                 "roundtrip_eval": (("stegotpu_torch/csrc/qim_eval.cu", None),
-                                   None)}
-    errs.update(embed=embed_err, extract_packed=extract_err)
+                                   None),
+                "unpack_packed": (("stegotpu_torch/csrc/qim_unpack.cu", None),
+                                  None)}
+    errs.update(embed=embed_err, extract_packed=extract_err, **errs4)
     kernels = []
     for k, ((source, tpu_file), line) in replaces.items():
         # the least time for this run's inputs: phase 4's, 11's and 12's
@@ -904,7 +972,12 @@ def main() -> int:
             **({"note": "replaces no TPU kernel: the JAX package evaluates "
                         "in XLA code (stegotpu/ops/qim.py:165-189); "
                         "max_abs_err is its largest PSNR gap in dB"}
-               if k == "roundtrip_eval" else {})})
+               if k == "roundtrip_eval" else {}),
+            **({"note": "replaces no TPU kernel: the JAX package unpacks in "
+                        "XLA ops (stegotpu/ops/pallas_kernel.py:217); "
+                        "max_abs_err counts the bytes that differ from the "
+                        "plain version"}
+               if k == "unpack_packed" else {})})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
     from stegotpu_torch.studies import harness
@@ -1094,7 +1167,7 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
     2^-11 (ArithHopperSmallDelta; K9 keeps ArithCvt at both, the extract
     side's witness across the spellings), then on IDENTITY_ODD at delta
     20, 2^-11, 0 and -4. Returns the K4 and K5 launches of the harness's
-    run."""
+    run, and those of the wire-order unpack kernel."""
     import numpy as np
     import torch
 
@@ -1169,7 +1242,8 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
                                        verbose=False, content=content,
                                        device=dev)
     launches = {"roundtrip_packed": sk.ROUNDTRIP_LAUNCHES,
-                "extract_rows": sk.EXTRACT_ROWS_LAUNCHES}
+                "extract_rows": sk.EXTRACT_ROWS_LAUNCHES,
+                "unpack_packed": sk.UNPACK_LAUNCHES}
     for row in rows:
         check(exactness.row_ok(row), f"exactness row failed: {row}")
         print(f"phase 7 exactness {row['w']}x{row['h']} B={row['batch']} "
@@ -1179,10 +1253,12 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
               f"{row['roundtrip_errors_xla']} cover boundary flips "
               f"{row['extract_mismatch_cover']}", flush=True)
     check(all(v > 0 for v in launches.values()),
-          f"the exactness harness did not launch K4 and K5: {launches}")
+          f"the exactness harness did not launch K4, K5 and the unpack "
+          f"kernel: {launches}")
     print(f"phase 7 harness launches: ROUNDTRIP_LAUNCHES="
           f"{launches['roundtrip_packed']} EXTRACT_ROWS_LAUNCHES="
-          f"{launches['extract_rows']}", flush=True)
+          f"{launches['extract_rows']} UNPACK_LAUNCHES="
+          f"{launches['unpack_packed']}", flush=True)
     return launches
 
 

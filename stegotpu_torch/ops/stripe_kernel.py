@@ -32,7 +32,10 @@ call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
 launches (and nothing else), so a run can show that it went through them.
 Beside them, ``roundtrip_eval`` (csrc/qim_eval.cu, counted by
 ``EVAL_LAUNCHES``) computes a round trip's PSNR and bit errors on the card
-in one pass; its plain version is ops/qim.roundtrip_metrics_plain.
+in one pass; its plain version is ops/qim.roundtrip_metrics_plain. And
+``packed_rows_to_bits`` (csrc/qim_unpack.cu, counted by
+``UNPACK_LAUNCHES``) takes K2's and K4's packed rows to wire-order bits on
+the card in one pass; its plain version is ``packed_rows_to_bits_plain``.
 While a profiler records, every launch is the span
 ``stegotpu_torch.launch.<entry point>`` and every wire-order unpack a
 wrapper runs on the device is ``stegotpu_torch.unpack``; a blocking wait
@@ -77,6 +80,7 @@ ROUNDTRIP_LAUNCHES = 0
 EXTRACT_ROWS_LAUNCHES = 0
 ROUNDTRIP_ROWS_LAUNCHES = 0
 EVAL_LAUNCHES = 0
+UNPACK_LAUNCHES = 0
 
 
 # --- layout helpers (numpy/int, mirrors of pallas_kernel.py) -----------------
@@ -172,10 +176,11 @@ def _slot_lanes_to_bits(r: torch.Tensor, num_ac: int) -> torch.Tensor:
     return torch.cat(parts, dim=-1).reshape(r.shape[0], -1)
 
 
-def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
-                        stripe: int) -> torch.Tensor:
-    """packed_rows_to_bits_host on the tensor's own device: full frames of
-    packed rows -> (B, C) wire-order bits."""
+def packed_rows_to_bits_plain(packed: torch.Tensor, h: int, w: int,
+                              num_ac: int, stripe: int) -> torch.Tensor:
+    """Plain PyTorch version of the wire-order unpack kernel
+    (packed_rows_to_bits): packed_rows_to_bits_host on the tensor's own
+    device, full frames of packed rows -> (B, C) wire-order bits."""
     b = packed.shape[0]
     rn = rows_per_block(num_ac)
     rp = _rows_pad(stripe, rn)
@@ -381,7 +386,7 @@ def embed_and_check_frames_plain(
     _, h, w = frames.shape
     stego, bpf, packed = embed_and_extract_frames_packed_plain(
         frames, payload_bits, total_bits, delta, num_ac)
-    got = packed_rows_to_bits(packed, h, w, num_ac, pick_stripe(h))
+    got = packed_rows_to_bits_plain(packed, h, w, num_ac, pick_stripe(h))
     return stego, bpf, count_wrong_bits(got, payload_bits, total_bits)
 
 
@@ -507,6 +512,62 @@ def extract_frames_packed(frames: torch.Tensor, delta: float,
                 float(delta), _stream(dev))
         EXTRACT_LAUNCHES += 1
     return packed
+
+
+def _check_packed(packed: torch.Tensor, h: int, w: int, num_ac: int,
+                  stripe: int) -> int:
+    """Raise unless `packed` is contiguous uint8 packed rows of full
+    frames of h x w at num_ac and stripe, (B, (h/stripe)*rows_pad, w/8), on
+    the CPU or a CUDA device; returns C, the wire bits of one frame."""
+    if h % BLOCK or w % BLOCK or h <= 0 or w <= 0:
+        raise ValueError(f"frame dims {h}x{w} must be positive multiples of "
+                         f"{BLOCK}")
+    if not 1 <= num_ac <= 63:
+        raise ValueError(f"num_ac {num_ac} must lie in 1..63")
+    stripe = _stripe_for(h, stripe)
+    want = (h // stripe) * _rows_pad(stripe, rows_per_block(num_ac)), w // BLOCK
+    if (packed.dtype != torch.uint8 or packed.dim() != 3
+            or tuple(packed.shape[1:]) != want):
+        raise ValueError(f"packed rows must be (B, {want[0]}, {want[1]}) "
+                         f"uint8 for {h}x{w}, num_ac {num_ac}, stripe "
+                         f"{stripe}, got {tuple(packed.shape)} {packed.dtype}")
+    if not packed.is_contiguous():
+        raise ValueError("the wire-order unpack takes contiguous packed rows")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed rows on unsupported device {packed.device}")
+    return (h // BLOCK) * (w // BLOCK) * num_ac
+
+
+def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
+                        stripe: int) -> torch.Tensor:
+    """The wire-order unpack: K2's or K4's packed rows of full frames ->
+    (B, C) wire-order bits, on the tensor's device. On the card one launch
+    of csrc/qim_unpack.cu (counted by UNPACK_LAUNCHES), with 16-byte stores
+    where every output row starts on a 16-byte boundary and single bytes
+    elsewhere, the same bytes; on the CPU packed_rows_to_bits_plain. Raises
+    on anything the kernel does not take (_check_packed)."""
+    global UNPACK_LAUNCHES
+    cap = _check_packed(packed, h, w, num_ac, stripe)
+    if packed.device.type == "cpu":
+        return packed_rows_to_bits_plain(packed, h, w, num_ac, stripe)
+    b = packed.shape[0]
+    bits = torch.empty((b, cap), dtype=torch.uint8, device=packed.device)
+    if bits.numel():
+        dev = packed.device
+        _launch("stegotpu_qim_unpack_packed", packed.data_ptr(),
+                bits.data_ptr(), dev.index, b, h, w, num_ac, stripe,
+                _rows_pad(stripe, rows_per_block(num_ac)),
+                unpack_store_width(bits, w, num_ac), _stream(dev))
+        UNPACK_LAUNCHES += 1
+    return bits
+
+
+def unpack_store_width(bits: torch.Tensor, w: int, num_ac: int) -> int:
+    """The unpack kernel's store width for the output `bits`: 16 where every
+    output block row ((W/8)*num_ac bytes) and the base start on a 16-byte
+    boundary, else 1."""
+    return 16 if (w // BLOCK * num_ac) % 16 == 0 and \
+        bits.data_ptr() % 16 == 0 else 1
 
 
 def extract_frames(frames: torch.Tensor, delta: float,

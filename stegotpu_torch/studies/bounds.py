@@ -71,6 +71,9 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         # frames and stego, extracted and payload bits; the sums, the
         # ticket and the three results
         "roundtrip_eval": 2 * pixels + 2 * payload + 4 * 8 + 4,
+        # the wire-order unpack: each block's rn slot-row bytes read once
+        # (never the padding rows), each wire bit written once as a byte
+        "unpack_packed": blocks * rn + payload,
     }[kernel]
     flops = {
         # forward + inverse of the whole block, separable: two passes of
@@ -84,6 +87,7 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
         "copy": 0,
         "dmaspec": 0,
         "roundtrip_eval": 0,                       # integer work only
+        "unpack_packed": 0,
     }.get(kernel)
     if flops is None:
         flops = blocks * 2 * 2 * rn * 64 * _TRANSFORMS[kernel]

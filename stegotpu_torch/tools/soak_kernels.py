@@ -83,7 +83,7 @@ def _extract_plain(frames: torch.Tensor, delta: float,
     """K2's plain version then the wire-order unpack, on the frames'
     device."""
     _, h, w = frames.shape
-    return sk.packed_rows_to_bits(
+    return sk.packed_rows_to_bits_plain(
         sk.extract_frames_packed_plain(frames, delta, num_ac), h, w, num_ac,
         sk.pick_stripe(h))
 

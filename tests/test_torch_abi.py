@@ -64,6 +64,17 @@ def test_binding_matches_the_source(name):
     assert _build.ARGTYPES[name] == params, name
 
 
+def test_the_unpack_kernel_is_bound():
+    """The wire-order unpack's entry point (csrc/qim_unpack.cu): packed and
+    bits pointers, device, B, H, W, num_ac, stripe, rows_pad, the store
+    width, then the stream."""
+    assert _build.ARGTYPES["stegotpu_qim_unpack_packed"] == [
+        ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 8,
+        ctypes.c_void_p]
+    assert ENTRIES["stegotpu_qim_unpack_packed"][1] == \
+        _build.ARGTYPES["stegotpu_qim_unpack_packed"]
+
+
 def test_parser_reads_each_kind():
     text = '''extern "C" {
 int stegotpu_x(const void* a, void* b, int c, long long d, float e,

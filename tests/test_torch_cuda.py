@@ -311,14 +311,15 @@ def test_fused_kernels_write_bits_per_frame(dev, b, h, w, num_ac):
 
 def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
     """One K1, K2, K4, K5 or K6 call is one device kernel and nothing
-    else: the device timeline of torch.profiler holds no glue. One K3 call
-    is its kernel behind one memset of its counts, and so is one call of
-    the evaluation kernel."""
+    else: the device timeline of torch.profiler holds no glue; so is one
+    call of the wire-order unpack. One K3 call is its kernel behind one
+    memset of its counts, and so is one call of the evaluation kernel."""
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 240, 10)
     args = (frames, payload, total, 20.0, 10)
     stego, bits = frames.flip(0), payload.flip(0)
+    packed = sk.extract_frames_packed(frames, 20.0, 10)
     for name, fn, glue in (
             ("qim_embed_kernel", lambda: sk.embed_frames(*args), {}),
             ("qim_extract_packed_kernel",
@@ -333,7 +334,9 @@ def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
              lambda: sk.embed_and_check_frames(*args), {"gpu_memset": 1.0}),
             ("qim_eval_kernel",
              lambda: sk.roundtrip_eval(frames, stego, payload, bits, total),
-             {"gpu_memset": 1.0})):
+             {"gpu_memset": 1.0}),
+            ("qim_unpack_kernel",
+             lambda: sk.packed_rows_to_bits(packed, 48, 240, 10, 48), {})):
         summ = dr.parse_device_timeline(
             dr._trace(fn, 4, tmp_path / f"{name}.json"), 4)
         assert name in summ["kernel_name"], summ
@@ -342,21 +345,23 @@ def test_embed_and_extract_are_one_device_kernel_each(dev, tmp_path):
 
 
 def test_fused_kernels_launch_once_each(dev, tmp_path):
-    """One call of K3, K4, K5 or K6 counts one launch; a K6 call (rows and
+    """One call of K3, K4, K5 or K6 counts one launch (and the round trip's
+    wire-order unpack one launch of its kernel); a K6 call (rows and
     bits per frame from the kernel) is one device kernel on the timeline
     and nothing else."""
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 128, 10)
     before = (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-              sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES)
+              sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES,
+              sk.UNPACK_LAUNCHES)
     sk.embed_and_check_frames(frames, payload, total, 20.0, 10)
     sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
     sk.extract_frames_rows(frames, 20.0, 10)
     sk.embed_and_extract_frames_rows(frames, payload, total, 20.0, 10)
     assert (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-            sk.EXTRACT_ROWS_LAUNCHES,
-            sk.ROUNDTRIP_ROWS_LAUNCHES) == tuple(n + 1 for n in before)
+            sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES,
+            sk.UNPACK_LAUNCHES) == tuple(n + 1 for n in before)
     summ = dr.parse_device_timeline(dr._trace(
         lambda: sk.embed_and_extract_frames_rows(frames, payload, total, 20.0,
                                                  10), 4, tmp_path / "k6.json"), 4)
@@ -673,6 +678,65 @@ def test_eval_kernel_sums_in_64_bits(dev, b):
         assert int(m["bit_errors"]) == b * cap
     del zeros, full
     torch.cuda.empty_cache()
+
+
+# --- the wire-order unpack (csrc/qim_unpack.cu) --------------------------------
+
+# (B, H, W, num_ac, stripe; None picks it from H): the 4K and 1080p cells'
+# shapes, 720p at num_ac 3 (rn 1), num_ac across the slot rows' edges at a
+# width whose rows take 16-byte stores (W/8 = 16) and at one whose W/8 is
+# odd (9: single-byte stores), the explicit stripes 8, 216 and 360, B = 1
+UNPACK_CASES = [(2, 2160, 3840, 10, None), (8, 1080, 1920, 10, None),
+                (2, 720, 1280, 3, None),
+                *[(2, 48, w, n, None) for n in (1, 7, 8, 9, 15, 63)
+                  for w in (128, 72)],
+                (2, 64, 128, 10, 8), (1, 2160, 3840, 10, 216),
+                (1, 2160, 3840, 63, 360), (1, 48, 72, 10, None),
+                (1, 40, 136, 1, 40)]
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("b,h,w,num_ac,stripe", UNPACK_CASES)
+def test_unpack_kernel_matches_plain(dev, b, h, w, num_ac, stripe, offset):
+    """packed_rows_to_bits on the card (one launch of the unpack kernel) is
+    packed_rows_to_bits_plain byte for byte on random packed bytes, the
+    non-slot bits and the padding rows random too, with the packed rows'
+    storage aligned or 3 bytes past a 16-byte boundary; the store width
+    follows (W/8)*num_ac."""
+    stripe = stripe or sk.pick_stripe(h)
+    rp = sk._rows_pad(stripe, sk.rows_per_block(num_ac))
+    shape = (b, (h // stripe) * rp, w // 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * h * w + num_ac)
+    n = math.prod(shape)
+    flat = torch.randint(0, 256, (n + offset,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    packed = flat[offset:].view(shape)
+    before = sk.UNPACK_LAUNCHES
+    got = sk.packed_rows_to_bits(packed, h, w, num_ac, stripe)
+    assert sk.UNPACK_LAUNCHES == before + 1
+    want = sk.packed_rows_to_bits_plain(packed, h, w, num_ac, stripe)
+    torch.cuda.synchronize()
+    assert got.device == packed.device and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+    wide = (w // 8 * num_ac) % 16 == 0
+    assert sk.unpack_store_width(got, w, num_ac) == (16 if wide else 1)
+
+
+def test_round_trips_unpack_through_the_kernel(dev):
+    """The round trips' bits are the unpack kernel's: embed_and_extract_
+    frames and extract_frames at 1080p each launch it once, and give the
+    plain version's unpack of K4's packed rows and of K2's reading of the
+    stego (the same rows: K4's bits are K2's)."""
+    frames, payload, total = _cover(dev, "mid", 2, 1080, 1920, 10)
+    stego, _, packed = sk.embed_and_extract_frames_packed(frames, payload,
+                                                          total, 20.0, 10)
+    want = sk.packed_rows_to_bits_plain(packed, 1080, 1920, 10, 120)
+    before = sk.UNPACK_LAUNCHES
+    _, _, bits = sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
+    assert torch.equal(bits, want)
+    assert torch.equal(sk.extract_frames(stego, 20.0, 10), want)
+    assert sk.UNPACK_LAUNCHES == before + 2
 
 
 # --- the study kernels K9-K12 (stegotpu_torch/studies) -------------------------

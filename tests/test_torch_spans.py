@@ -290,3 +290,31 @@ def test_host_waits_on_the_card_are_the_spans_named(dev, monkeypatch):
     want = qim.roundtrip_metrics_plain(frames, stego, bits, payload, b * cap)
     assert int(m["bit_errors"]) == int(want["bit_errors"])
     assert int(m["payload_bits"]) == b * cap
+
+
+@pytest.mark.cuda
+def test_each_unpack_span_on_the_card_holds_one_unpack_launch(dev,
+                                                              monkeypatch):
+    """On the card every stegotpu_torch.unpack span (embed_and_extract_
+    frames, extract_frames) holds exactly one launch span, that of the
+    unpack kernel, so unpack_share_pct.stream reads the kernel's time."""
+    open_spans, entered = [], []
+
+    @contextlib.contextmanager
+    def recording(name):
+        open_spans.append(name)
+        entered.append(tuple(open_spans))
+        try:
+            yield
+        finally:
+            open_spans.pop()
+
+    monkeypatch.setattr(sk, "annotate", recording)
+    frames, payload, total = _batch(device=dev)
+    sk.embed_and_extract_frames(frames, payload, total, DELTA, NUM_AC)
+    sk.extract_frames(frames, DELTA, NUM_AC)
+    torch.cuda.synchronize(dev)
+    unpack = "stegotpu_torch.unpack"
+    assert sum(e[-1] == unpack for e in entered) == 2
+    assert [e for e in entered if unpack in e[:-1]] == [
+        (unpack, "stegotpu_torch.launch.stegotpu_qim_unpack_packed")] * 2

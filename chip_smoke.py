@@ -475,12 +475,13 @@ def _eval_4k(dev, gpu: str) -> None:
                           dtype=torch.uint8)
         s, _, ex = sk.embed_and_extract_frames(f, p, b * cap, DELTA, NUM_AC)
         sets.append((f, s, ex, p, b * cap))
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     ms = {k: _queued_ms(_per_set(fn, sets), k, runs=10)
           for k, fn in (("eval 4K", sk.roundtrip_eval),
                         ("eval 4K plain", qim.roundtrip_metrics_plain))}
     errors, n, gap = _eval_against_plain(*sets[0], "3840x2160 B=128")
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     bound, by = bounds.bound_ms(*bounds.work("roundtrip_eval", b, h, w,
                                              NUM_AC, 120))
     print(f"phase 4 evaluation roundtrip_eval 3840x2160 B=128 ({gpu}): "
@@ -508,7 +509,7 @@ def _unpack(dev, gpu: str, times: dict, queued: dict) -> dict[str, int]:
     from stegotpu_torch.ops import stripe_kernel as sk
     from stegotpu_torch.studies import bounds
 
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
     fns = {"unpack_packed": sk.packed_rows_to_bits,
@@ -548,7 +549,8 @@ def _unpack(dev, gpu: str, times: dict, queued: dict) -> dict[str, int]:
               f"{n_sets * nbytes >> 20} MiB in and out a rotation", flush=True)
         del pool, sets
         torch.cuda.empty_cache()
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     return {"unpack_packed": wrong}
 
 
@@ -570,49 +572,6 @@ def _per_set(fn, sets) -> list:
 # the witness kernels (studies/kron_ab.py): they replace no TPU kernel;
 # each computes the function of the kernel it witnesses
 WITNESS = {"kron_embed_smem": "kron_embed", "kron_extract_smem": "kron_extract"}
-
-COUNTERS = {
-    "stripe_kernel": ("EMBED_LAUNCHES", "EXTRACT_LAUNCHES", "CHECK_LAUNCHES",
-                      "ROUNDTRIP_LAUNCHES", "EXTRACT_ROWS_LAUNCHES",
-                      "ROUNDTRIP_ROWS_LAUNCHES", "EVAL_LAUNCHES",
-                      "UNPACK_LAUNCHES"),
-    "kron_kernel": ("KRON_EMBED_LAUNCHES", "KRON_EXTRACT_LAUNCHES"),
-    "kron_ab": ("KRON_EMBED_SMEM_LAUNCHES", "KRON_EXTRACT_SMEM_LAUNCHES"),
-    "extract_ablation": tuple(f"{v.upper()}_LAUNCHES" for v in ABLATIONS),
-    "ab_packed_payload": ("PACKEDIN_LAUNCHES",),
-    "dualchain_r5": ("DUAL_LAUNCHES",),
-    "roofline_r4": ("COPY_LAUNCHES", "DMASPEC_LAUNCHES"),
-    "emitpipe_r4": tuple(f"PIPE_BUF{n}_LAUNCHES" for n in (2, 3, 4)),
-}
-
-
-def _counter_modules():
-    from stegotpu_torch.ops import stripe_kernel
-    from stegotpu_torch.ops.experimental import kron_kernel
-    from stegotpu_torch.studies import (ab_packed_payload, dualchain_r5,
-                                        emitpipe_r4, extract_ablation,
-                                        kron_ab, roofline_r4)
-
-    return {"stripe_kernel": stripe_kernel, "kron_kernel": kron_kernel,
-            "kron_ab": kron_ab,
-            "extract_ablation": extract_ablation,
-            "ab_packed_payload": ab_packed_payload,
-            "dualchain_r5": dualchain_r5, "roofline_r4": roofline_r4,
-            "emitpipe_r4": emitpipe_r4}
-
-
-def _counts() -> dict[str, int]:
-    return {c: getattr(mod, c) for key, mod in _counter_modules().items()
-            for c in COUNTERS[key]}
-
-
-def _set_counts(counts: dict[str, int] | None = None) -> None:
-    """Set every launch counter of every kernel module (to 0 without
-    `counts`)."""
-    for key, mod in _counter_modules().items():
-        for c in COUNTERS[key]:
-            setattr(mod, c, 0 if counts is None else counts[c])
-
 
 def _near_boundary_t(frames, delta: float, num_ac: int):
     """Per wire-order slot bit, a (B, C) bool tensor on the frames' device:
@@ -764,14 +723,14 @@ def main() -> int:
     bits = payload_mod.build_payload_bits(parts)
     cover = rng.integers(16, 240, (24, 1080, 1920), dtype=np.uint8)
     cfg = StegoConfig()
-    _set_counts()
+    sk.LAUNCHES.clear()
     t0 = time.perf_counter()
     stego, bpf = embed_payload_into_gray_frames(cover, bits, cfg, device=dev)
     out = extract_bits_from_gray_frames(stego, cfg, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"embed": sk.EMBED_LAUNCHES,
-                "extract_packed": sk.EXTRACT_LAUNCHES}
+    launches = {"embed": sk.LAUNCHES["stegotpu_qim_embed"],
+                "extract_packed": sk.LAUNCHES["stegotpu_qim_extract_packed"]}
     check(int(bpf.sum()) == bits.size, "main path: not every bit embedded")
     got, _consumed = payload_mod.parse_payload_bits(out, cfg.dims_bits)
     check(got == parts, "main path: payload did not round-trip")
@@ -783,15 +742,14 @@ def main() -> int:
     print(f"phase 3 main path 1080p: {bits.size} payload bits over "
           f"{int((bpf > 0).sum())} of {len(cover)} frames round-trip exactly "
           f"(parse_payload_bits); frames {tail[0]}..{tail[-1]} byte-identical "
-          f"to the cover; EMBED_LAUNCHES={launches['embed']} "
-          f"EXTRACT_LAUNCHES={launches['extract_packed']}; {seconds:.2f} s "
-          "host clock",
-          flush=True)
+          f"to the cover; stegotpu_qim_embed={launches['embed']} "
+          f"stegotpu_qim_extract_packed={launches['extract_packed']}; "
+          f"{seconds:.2f} s host clock", flush=True)
     del stego, out
 
     # phase 4: kernel and plain times at 1920x1080, B=8, inputs from HBM
     sets = _cold_sets(dev, rng)
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
 
     def embed_args(fn):
         return lambda f, p, t: fn(f, p, t, DELTA, NUM_AC)
@@ -835,7 +793,8 @@ def main() -> int:
     for k in WITNESS:  # the witness's plain version is its kernel's
         times[f"{k}_plain"] = times[f"{WITNESS[k]}_plain"]
         queued[f"{k}_plain"] = queued[f"{WITNESS[k]}_plain"]
-    _set_counts(counts)  # timing is not a path's run
+    sk.LAUNCHES.clear()  # timing is not a path's run
+    sk.LAUNCHES.update(counts)
     cold = (f"rotating over {len(sets)} input sets of "
             f"{sum(f.numel() + p.numel() for f, p, _ in sets) >> 20} MiB")
     print(f"phase 4 times 1920x1080 B=8 (median of 20 CUDA-event runs, {cold}, "
@@ -1021,7 +980,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
                 writer.write_bgr_batch(batch)
         priv, pub = crypto.generate_keypair(rng)
         crypto.save_keypair_pem(priv, tmp / "priv.pem", tmp / "pub.pem")
-        _set_counts()
+        sk.LAUNCHES.clear()
         embed_stages, extract_stages = StageTimer(), StageTimer()
         t0 = time.perf_counter()
         res = embed_image_in_video(
@@ -1036,7 +995,7 @@ def _file_to_file(dev, rng, label: str, cover_batches, secret_hw,
             StegoConfig(), tmp / "extracted.png", batch_frames=8,
             timer=extract_stages, device=dev)
         t2 = time.perf_counter()
-        counts = _counts()
+        counts = sk.LAUNCHES.copy()
         embed_rep, extract_rep = (t.report().replace("\n", "; ")
                                   for t in (embed_stages, extract_stages))
         check(out.success and out.hash_ok, f"file extract failed: {out.error}")
@@ -1234,16 +1193,15 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
               f"(W%16={w % 16}, payload ends at {total} of {b * cap} bits): "
               "every identity above at delta 20, 2^-11, 0, -4", flush=True)
 
-    _set_counts()
+    sk.LAUNCHES.clear()
     rows = [exactness.quick_exactness_check(device=dev)]
     for content in ("noise", "compressed") if with_cv2 else ("noise",):
         rows += exactness.check_config(4, 1080, 1920, 10, [DELTA],
                                        np.random.default_rng(42),
                                        verbose=False, content=content,
                                        device=dev)
-    launches = {"roundtrip_packed": sk.ROUNDTRIP_LAUNCHES,
-                "extract_rows": sk.EXTRACT_ROWS_LAUNCHES,
-                "unpack_packed": sk.UNPACK_LAUNCHES}
+    launches = {k: sk.LAUNCHES[f"stegotpu_qim_{k}"]
+                for k in ("roundtrip_packed", "extract_rows", "unpack_packed")}
     for row in rows:
         check(exactness.row_ok(row), f"exactness row failed: {row}")
         print(f"phase 7 exactness {row['w']}x{row['h']} B={row['batch']} "
@@ -1255,10 +1213,8 @@ def _identities_and_harness(dev, rng, with_cv2: bool) -> dict[str, int]:
     check(all(v > 0 for v in launches.values()),
           f"the exactness harness did not launch K4, K5 and the unpack "
           f"kernel: {launches}")
-    print(f"phase 7 harness launches: ROUNDTRIP_LAUNCHES="
-          f"{launches['roundtrip_packed']} EXTRACT_ROWS_LAUNCHES="
-          f"{launches['extract_rows']} UNPACK_LAUNCHES="
-          f"{launches['unpack_packed']}", flush=True)
+    print("phase 7 harness launches: " + " ".join(
+        f"stegotpu_qim_{k}={v}" for k, v in launches.items()), flush=True)
     return launches
 
 
@@ -1341,16 +1297,16 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
     check(lost > 0, "test premise: the plain embed must lose bits on the "
           "letterboxed cover")
 
-    _set_counts()
+    sk.LAUNCHES.clear()
     t0 = time.perf_counter()
     s_mid, bpf_mid, r_mid = embed_frames_verified_fast(mid, payload, total,
                                                        DELTA, NUM_AC)
-    after_mid = sk.CHECK_LAUNCHES
+    after_mid = sk.LAUNCHES["stegotpu_qim_embed_check"]
     s_box, bpf_box, r_box = embed_frames_verified_fast(boxed, payload, total,
                                                        DELTA, NUM_AC)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"embed_check": sk.CHECK_LAUNCHES}
+    launches = {"embed_check": sk.LAUNCHES["stegotpu_qim_embed_check"]}
     check(after_mid == 1 and int(r_mid) == 0
           and torch.equal(bpf_mid, bpf_box),
           f"verified fast branch: launches {after_mid}, residual {int(r_mid)}")
@@ -1366,15 +1322,16 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
     print(f"phase 9 verified 1920x1080 B=8: mid cover fast branch residual 0, "
           f"stego == K1's, payload exact; letterboxed cover (bars 136 rows): "
           f"plain K1 embed loses {lost} bits, repair branch residual 0, K2 "
-          f"recovers all {total} bits; CHECK_LAUNCHES={launches['embed_check']}"
-          f"; {seconds:.3f} s host clock", flush=True)
+          f"recovers all {total} bits; stegotpu_qim_embed_check="
+          f"{launches['embed_check']}; {seconds:.3f} s host clock", flush=True)
     if files:
         from stegotpu_torch.config import StegoConfig
 
         n = _file_to_file(
             dev, rng, "phase 9 verified file-to-file 1080p letterboxed",
             [np.repeat(_letterboxed(rng, 6)[..., None], 3, axis=-1)],
-            (240, 320), StegoConfig(verified_embed=True))["CHECK_LAUNCHES"]
+            (240, 320),
+            StegoConfig(verified_embed=True))["stegotpu_qim_embed_check"]
         check(n > 0, "the verified file embed did not launch K3")
         launches["embed_check"] += n
     else:
@@ -1506,7 +1463,7 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
     # the path of K6, K7 and K8: round trips scored by their metrics
     frames, payload, total = _covers(dev, rng, 8, 1080, 1920, "mid")
     args = (frames, payload, total, DELTA, NUM_AC)
-    _set_counts()
+    sk.LAUNCHES.clear()
     t0 = time.perf_counter()
     s6, _, ex6 = sk.embed_and_extract_frames_fused(*args)
     m6 = qim.roundtrip_metrics(frames, s6, ex6, payload, total)
@@ -1514,10 +1471,11 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
     m7 = qim.roundtrip_metrics(frames, s7, ex7, payload, total)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"roundtrip_rows": sk.ROUNDTRIP_ROWS_LAUNCHES,
-                "kron_embed": kk.KRON_EMBED_LAUNCHES,
-                "kron_extract": kk.KRON_EXTRACT_LAUNCHES,
-                "roundtrip_eval": sk.EVAL_LAUNCHES}
+    entries = {"roundtrip_rows": "stegotpu_qim_roundtrip_rows",
+               "kron_embed": "stegotpu_kron_embed",
+               "kron_extract": "stegotpu_kron_extract",
+               "roundtrip_eval": "stegotpu_qim_eval"}
+    launches = {k: sk.LAUNCHES[e] for k, e in entries.items()}
     check(all(v > 0 for v in launches.values()),
           f"the round trips did not launch K6, K7, K8 and the evaluation "
           f"kernel: {launches}")
@@ -1561,10 +1519,8 @@ def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
           f"{float(m6['psnr_db']):.4f} kron {float(m7['psnr_db']):.4f} oracle "
           f"{float(m_o['psnr_db']):.4f}; frame 0 PSNR {p_dev:.6f} dB (host "
           f"{p_host:.6f}) SSIM {q_dev:.7f} (host {q_host:.7f}); "
-          f"ROUNDTRIP_ROWS_LAUNCHES={launches['roundtrip_rows']} "
-          f"KRON_EMBED_LAUNCHES={launches['kron_embed']} "
-          f"KRON_EXTRACT_LAUNCHES={launches['kron_extract']} "
-          f"EVAL_LAUNCHES={launches['roundtrip_eval']}; evaluation kernel "
+          + " ".join(f"{e}={launches[k]}" for k, e in entries.items())
+          + "; evaluation kernel "
           f"== plain in bits (damaged K6 bits: {bad_errors} errors of "
           f"{bad_n} payload bits), PSNR off the exact by at most "
           f"{max(gaps):.3g} dB; {seconds:.3f} s host clock", flush=True)
@@ -1591,6 +1547,7 @@ def _kron_witness(dev, rng) -> dict[str, int]:
     import numpy as np
     import torch
 
+    from stegotpu_torch.ops import stripe_kernel as sk
     from stegotpu_torch.studies import kron_ab
 
     for b, h, w in KRON_WITNESS_SHAPES:
@@ -1616,10 +1573,10 @@ def _kron_witness(dev, rng) -> dict[str, int]:
               f"bits of cover and stego byte for byte in {checked} cases "
               "(num_ac 1/10/63, delta 20 and 2^-11, payload full, ending "
               "mid-block or mid-frame, offset 0 and 13)", flush=True)
-    _set_counts()
+    sk.LAUNCHES.clear()
     rows = _run_main("kron_ab", kron_ab.main, ["--iters", "10"], phase=10)
-    launches = {"kron_embed_smem": kron_ab.KRON_EMBED_SMEM_LAUNCHES,
-                "kron_extract_smem": kron_ab.KRON_EXTRACT_SMEM_LAUNCHES}
+    launches = {k: sk.LAUNCHES[f"stegotpu_{k}"]
+                for k in ("kron_embed_smem", "kron_extract_smem")}
     check(all(r["ok"] for r in rows if "check" in r),
           f"kron_ab: K7/K8 != their witness: {rows}")
     check(all(v > 0 for v in launches.values()),
@@ -1628,8 +1585,7 @@ def _kron_witness(dev, rng) -> dict[str, int]:
         f"{r['kernel']} B={r['batch']} {r['new_ms']:.4f} ms against the "
         f"witness's {r['witness_ms']:.4f} ({r['speedup']:.2f}x)"
         for r in rows if "kernel" in r)
-        + f"; KRON_EMBED_SMEM_LAUNCHES={launches['kron_embed_smem']} "
-        f"KRON_EXTRACT_SMEM_LAUNCHES={launches['kron_extract_smem']}",
+        + "; " + " ".join(f"stegotpu_{k}={v}" for k, v in launches.items()),
         flush=True)
     return launches
 
@@ -1837,7 +1793,7 @@ def _studies(dev, rng, gpu: str, sets: list):
 
     # times at 1920x1080, B=8, rotating over phase 4's input sets, so
     # that each call reads its inputs from HBM: not a path's run
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     stripe = sk.pick_stripe(1080)
     # (frames, f32 frames, packed payload, payload, total, copy_ target)
     sets = [(f, f.to(torch.float32),
@@ -1871,7 +1827,8 @@ def _studies(dev, rng, gpu: str, sets: list):
     copy_ = _per_set(lambda f, x, q, p, t, d: d.copy_(f), sets)
     library = {"copy": _time_ms(copy_)}
     library_queued = _queued_ms(copy_, "library copy_")
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     cold = f"rotating over {len(sets)} input sets"
     print(f"phase 11 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
           f"{cold}, {gpu}): "
@@ -1885,7 +1842,7 @@ def _studies(dev, rng, gpu: str, sets: list):
 
     # the path: each study's entry point, as a user runs it
     small = ["--batch", "8", "--iters", "3"]
-    _set_counts()
+    sk.LAUNCHES.clear()
     _run_main("extract_ablation", ea.main, small)
     _run_main("ab_packed_payload", ab.main, small)
     _run_main("dualchain_r5", dc.main, small)
@@ -1906,10 +1863,10 @@ def _studies(dev, rng, gpu: str, sets: list):
           f"roofline_r4 at 768p: stripes {stripes}, error rows {errors}")
     rows = _run_main("device_roofline", device_roofline.main,
                      ["--batch", "8", "--iters", "5"])
-    launches = dict(zip(names, (
-        *(getattr(ea, f"{v.upper()}_LAUNCHES") for v in ABLATIONS),
-        ab.PACKEDIN_LAUNCHES, dc.DUAL_LAUNCHES, rr.COPY_LAUNCHES,
-        rr.DMASPEC_LAUNCHES)))
+    launches = dict(zip(names, (sk.LAUNCHES[e] for e in (
+        *(f"stegotpu_qim_ablation:{v}" for v in ABLATIONS),
+        "stegotpu_qim_embed_packedin", "stegotpu_qim_roundtrip_dual",
+        "stegotpu_copy:copy", "stegotpu_copy:dmaspec"))))
     check(all(n > 0 for n in launches.values()),
           f"the studies did not launch every study kernel: {launches}")
     check(all("kernel_ms_each" in r for r in rows[1:]),
@@ -1923,11 +1880,12 @@ def _studies(dev, rng, gpu: str, sets: list):
               f"period {row[0].get('iter_period_ms', float('nan')):.4f} ms)",
               flush=True)
     # a K3 call: its kernel behind the memset of its counts, nothing else
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     frames, payload = harness.inputs(dev, 8, 1080, 1920)
     k3 = stripe_cap.timeline(lambda: sk.embed_and_check_frames(
         frames, payload, payload.numel(), DELTA, NUM_AC), iters=5)
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     glue = k3["glue_per_iter"]
     check("qim_embed_check_kernel" in (k3["kernel_name"] or "")
           and set(glue) <= {"gpu_memset"} and glue.get("gpu_memset", 0) <= 1,
@@ -1941,7 +1899,7 @@ def _studies(dev, rng, gpu: str, sets: list):
     # (each writes its bits per frame itself)
     from stegotpu_torch.studies import emitpipe_r4
 
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     total = payload.numel()
     for kn, template, fn in (
             ("K11", "qim_roundtrip_dual_kernel", dc.dual_roundtrip_packed),
@@ -1956,7 +1914,8 @@ def _studies(dev, rng, gpu: str, sets: list):
               f"glue (kernel {row['kernel_ms_each']:.4f} ms, period "
               f"{row.get('iter_period_ms') or float('nan'):.4f} ms)",
               flush=True)
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     print("phase 11 study launches: "
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return errs, launches, times, queued, library
@@ -2093,7 +2052,7 @@ def _pipe(dev, rng, gpu: str, sets: list):
           "and 2^-11", flush=True)
     # K13 beside K4 on that input in one call: queued, one 580 MB set (far
     # beyond the L2, so every call reads from HBM)
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     total = frames.shape[0] * payload.shape[1]
     b128 = {"K4": _queued_ms(lambda: sk.embed_and_extract_frames_packed(
         frames, payload, total, DELTA, NUM_AC), "K4 B=128")}
@@ -2101,7 +2060,8 @@ def _pipe(dev, rng, gpu: str, sets: list):
         b128[f"K13 bufs {n}"] = _queued_ms(
             lambda n=n: ep.roundtrip_pipelined_packed(
                 frames, payload, total, DELTA, NUM_AC, n), f"K13 bufs {n} B=128")
-    _set_counts(counts)
+    sk.LAUNCHES.clear()
+    sk.LAUNCHES.update(counts)
     del frames, payload
     print(f"phase 12 K13 beside K4 1080p B=128 (mean of 20 calls queued "
           f"behind a sleep kernel, {gpu}): " + ", ".join(
@@ -2151,7 +2111,7 @@ def _pipe(dev, rng, gpu: str, sets: list):
               "payload +0..3 B, delta 20, 8, 2^-11, 0, -4"
               + ("; K11 == K4 too" if b % 2 == 0 else ""), flush=True)
 
-    counts = _counts()
+    counts = sk.LAUNCHES.copy()
     calls = {name: (lambda f, p, t, n=n: ep.roundtrip_pipelined_packed(
         f, p, t, DELTA, NUM_AC, n)) for n, name in names.items()}
 
@@ -2167,7 +2127,8 @@ def _pipe(dev, rng, gpu: str, sets: list):
     plain_ms, plain_q = (_time_ms(_per_set(plain, sets)),
                          _queued_ms(_per_set(plain, sets), "K13 plain"))
     k4_q = _queued_ms(_per_set(k4, sets), "K4 in turn")
-    _set_counts(counts)  # timing is not a path's run
+    sk.LAUNCHES.clear()  # timing is not a path's run
+    sk.LAUNCHES.update(counts)
     print(f"phase 12 times 1920x1080 B=8 (median of 20 CUDA-event runs, "
           f"rotating over {len(sets)} input sets, {gpu}): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
@@ -2180,7 +2141,7 @@ def _pipe(dev, rng, gpu: str, sets: list):
     for name in names.values():
         times[f"{name}_plain"], queued[f"{name}_plain"] = plain_ms, plain_q
 
-    _set_counts()
+    sk.LAUNCHES.clear()
     t0 = time.perf_counter()
     gbps = {}
     for n in ep.BUFS:
@@ -2204,14 +2165,14 @@ def _pipe(dev, rng, gpu: str, sets: list):
     timed = {r["variant"] for r in rows[1:] if "ms_per_batch" in r}
     check(timed == {"fused", "fused_buf3", "fused_buf4"},
           f"roofline_r4 did not time K13's rows: {rows}")
-    launches = {name: getattr(ep, f"PIPE_BUF{n}_LAUNCHES")
+    launches = {name: sk.LAUNCHES[f"stegotpu_qim_roundtrip_pipe:buf{n}"]
                 for n, name in names.items()}
     check(all(v > 0 for v in launches.values()),
           f"the path did not launch K13 at every bufs: {launches}")
-    print(f"phase 12 path: PIPE_BUF2_LAUNCHES={launches[names[2]]} "
-          f"PIPE_BUF3_LAUNCHES={launches[names[3]]} PIPE_BUF4_LAUNCHES="
-          f"{launches[names[4]]}; {time.perf_counter() - t0:.1f} s host clock",
-          flush=True)
+    print("phase 12 path: " + " ".join(
+        f"stegotpu_qim_roundtrip_pipe:buf{n}={launches[name]}"
+        for n, name in names.items())
+        + f"; {time.perf_counter() - t0:.1f} s host clock", flush=True)
     return errs, launches, times, queued
 
 
@@ -2261,7 +2222,7 @@ def _cli() -> None:
         ok("fixtures", "--dir", "media", "--width", "1920", "--height",
            "1080", "--frames", "12", "--secret-size", "256")
         ok("genkey")
-        _set_counts()
+        sk.LAUNCHES.clear()
         out, _ = ok("embed", "media/cover.mp4", "media/secret.png",
                     "out/stego", "--timing")
         m = re.search(r"embedded (\d+) bits", out)
@@ -2273,12 +2234,13 @@ def _cli() -> None:
         check(np.array_equal(load_image_gray("out/extracted.png"),
                              load_image_gray("media/secret.png")),
               "cli: the secret is not pixel-identical")
-        check(sk.EMBED_LAUNCHES > 0 and sk.EXTRACT_LAUNCHES > 0,
-              f"cli embed/extract launched EMBED_LAUNCHES={sk.EMBED_LAUNCHES}"
-              f" EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}")
+        k1, k2 = (sk.LAUNCHES[e] for e in ("stegotpu_qim_embed",
+                                            "stegotpu_qim_extract_packed"))
+        check(k1 > 0 and k2 > 0, f"cli embed/extract launched "
+              f"stegotpu_qim_embed={k1} stegotpu_qim_extract_packed={k2}")
         print(f"phase 13 embed -> extract 1920x1080: pixel-identical, SHA3 "
-              f"OK; EMBED_LAUNCHES={sk.EMBED_LAUNCHES} EXTRACT_LAUNCHES="
-              f"{sk.EXTRACT_LAUNCHES}", flush=True)
+              f"OK; stegotpu_qim_embed={k1} stegotpu_qim_extract_packed={k2}",
+              flush=True)
 
         ins = json.loads(ok("inspect", "out/stego.avi", "--json")[0])
         check((ins["width"], ins["height"], ins["payload_type"],
@@ -2300,17 +2262,17 @@ def _cli() -> None:
         out, _ = ok("selftest", "--dir", "selftest")
         check("SELFTEST PASSED" in out and "kernel exactness: OK" in out,
               f"selftest: {out}")
-        _set_counts()
+        sk.LAUNCHES.clear()
         out, _ = ok("bench")
         lines = [ln for ln in out.splitlines() if ln.strip()]
         check(len(lines) == 1, f"bench printed {len(lines)} lines")
         row = json.loads(lines[0])
         check(row.get("exactness_ok") is True and row.get("value", 0) > 0
               and "error" not in row, f"bench: {row}")
-        check(sk.ROUNDTRIP_LAUNCHES > 0,
-              f"bench launched ROUNDTRIP_LAUNCHES={sk.ROUNDTRIP_LAUNCHES}")
-        print(f"phase 13 bench ({row['gpu']}; ROUNDTRIP_LAUNCHES="
-              f"{sk.ROUNDTRIP_LAUNCHES}): {json.dumps(row)}", flush=True)
+        k4 = sk.LAUNCHES["stegotpu_qim_roundtrip_packed"]
+        check(k4 > 0, f"bench launched stegotpu_qim_roundtrip_packed={k4}")
+        print(f"phase 13 bench ({row['gpu']}; stegotpu_qim_roundtrip_packed="
+              f"{k4}): {json.dumps(row)}", flush=True)
 
 def _free_port() -> int:
     import socket
@@ -2416,14 +2378,14 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
           "letterboxed cover")
     for n_data, n_space in ((2, 1), (1, 3), (2, 3)):
         mesh = make_mesh(n_data, n_space, [dev] * (n_data * n_space))
-        _set_counts()
+        sk.LAUNCHES.clear()
         t0 = time.perf_counter()
         stego, bpf = sharded_embed_frames(mesh, NUM_AC, kernel="pallas")(
             frames, payload, total, DELTA)
-        k1 = sk.EMBED_LAUNCHES
+        k1 = sk.LAUNCHES["stegotpu_qim_embed"]
         bits = sharded_extract_frames(mesh, NUM_AC, kernel="pallas")(
             one_stego, DELTA)
-        k2 = sk.EXTRACT_LAUNCHES
+        k2 = sk.LAUNCHES["stegotpu_qim_extract_packed"]
         step = sharded_roundtrip_step(mesh, NUM_AC, kernel="pallas")
         s_step, b_step, x_step, e_step = step(frames, payload, total, DELTA)
         _, _, _, e_box = step(boxed, payload, total, DELTA)
@@ -2442,12 +2404,13 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
               f"mesh {grid}: step counts {int(e_box)} errors on the "
               f"letterboxed cover, count_wrong_bits {box_errors}")
         check(k1 == want_k1 and k2 == n_data * n_space,
-              f"mesh {grid}: EMBED_LAUNCHES {k1} (want {want_k1}), "
-              f"EXTRACT_LAUNCHES {k2} (want {n_data * n_space})")
+              f"mesh {grid}: stegotpu_qim_embed {k1} (want {want_k1}), "
+              f"stegotpu_qim_extract_packed {k2} (want {n_data * n_space})")
         print(f"phase 14 mesh {grid} over {mesh.devices.size} x {dev} "
               f"{w}x{h} B=8: stego, bpf == one K1 call; bits == K2 + "
               f"unpack; step errors 0, letterboxed {int(e_box)} == "
-              f"count_wrong_bits; EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES={k2}; "
+              f"count_wrong_bits; stegotpu_qim_embed={k1} "
+              f"stegotpu_qim_extract_packed={k2}; "
               f"{seconds:.3f} s host clock", flush=True)
     del frames, boxed, payload, one_stego, one_bits, box_stego
 
@@ -2469,15 +2432,15 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
         key = crypto.load_private_pem(tmp / "priv.pem")
 
         mesh = product_mesh("data=1")
-        _set_counts()
+        sk.LAUNCHES.clear()
         t0 = time.perf_counter()
         res = embed_image_in_video(tmp / "cover.avi", tmp / "secret.png",
                                    tmp / "mesh", pub_c, cfg, batch_frames=8,
                                    rng=np.random.default_rng(14), mesh=mesh)
         t_mesh = time.perf_counter() - t0
-        check(res.success and sk.EMBED_LAUNCHES > 0,
-              f"mesh file embed: {res.error}, EMBED_LAUNCHES "
-              f"{sk.EMBED_LAUNCHES}")
+        k1 = sk.LAUNCHES["stegotpu_qim_embed"]
+        check(res.success and k1 > 0,
+              f"mesh file embed: {res.error}, stegotpu_qim_embed {k1}")
         t0 = time.perf_counter()
         plain = embed_image_in_video(tmp / "cover.avi", tmp / "secret.png",
                                      tmp / "plain", pub_c, cfg,
@@ -2491,7 +2454,7 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
               "mesh file embed: decoded frames differ from the plain "
               "pipeline's")
         stego = res.output_path
-        _set_counts()
+        sk.LAUNCHES.clear()
         out = extract_image_from_video(stego, key, cfg, tmp / "x_mesh.png",
                                        mesh=mesh)
         check(out.success and out.hash_ok and np.array_equal(out.pixels,
@@ -2501,8 +2464,10 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
               f"{res.total_payload_bits} bits in {res.frames_used} frames, "
               f"decoded stego == the plain pipeline's, secret "
               f"{secret.shape[1]}x{secret.shape[0]} pixel-identical, SHA3 ok; "
-              f"EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}; embed {t_mesh:.3f} s, "
-              f"plain pipeline's {t_plain:.3f} s host clock ({gpu})",
+              "stegotpu_qim_extract_packed="
+              f"{sk.LAUNCHES['stegotpu_qim_extract_packed']}; embed "
+              f"{t_mesh:.3f} s, plain pipeline's {t_plain:.3f} s host clock "
+              f"({gpu})",
               flush=True)
 
         verified = StegoConfig(verified_embed=True)
@@ -2536,7 +2501,7 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
                                                              secret),
               f"plain extract: {out.error}")
         for mode in ("thread", "spawn"):
-            _set_counts()
+            sk.LAUNCHES.clear()
             t0 = time.perf_counter()
             rc, text, err = _cli_run(
                 "extract", str(stego), str(tmp / f"x_{mode}.png"),
@@ -2548,8 +2513,8 @@ def _parallel(dev, rng, gpu: str, h: int = 1080, w: int = 1920) -> None:
                                      secret),
                   f"extract --procs 2 --procs-mode {mode}: {err[-2000:]}")
             if mode == "thread":
-                check(sk.EXTRACT_LAUNCHES > 0, "extract --procs 2 thread "
-                      "launched no K2")
+                check(sk.LAUNCHES["stegotpu_qim_extract_packed"] > 0,
+                      "extract --procs 2 thread launched no K2")
         with VideoReader(stego) as reader:
             gray = next(reader.batches(8, mode="gray"))
         with _make_pool("spawn", 1) as pool:
@@ -2745,9 +2710,9 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
         base = f"http://127.0.0.1:{srv.server_address[1]}"
         try:
             def post(path, body, want=200, counter=None):
-                _set_counts()
+                sk.LAUNCHES.clear()
                 code, out, seconds = _http(base, path, body)
-                n = None if counter is None else getattr(sk, counter)
+                n = None if counter is None else sk.LAUNCHES[counter]
                 check(code == want, f"POST {path}: {code}, want {want}: {out}")
                 check(n is None or n > 0, f"POST {path} launched no kernel "
                       f"({counter}={n})")
@@ -2763,12 +2728,12 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
                   and cap["frames"] == 12, f"/capacity: {cap}")
             embed = {"cover": str(cover), "secret": str(secret_png),
                      "output": str(tmp / "st"), **keys}
-            emb = post("/embed", embed, counter="EMBED_LAUNCHES")
+            emb = post("/embed", embed, counter="stegotpu_qim_embed")
             check(emb["success"] and emb["residual_bits"] == 0
                   and emb["frames_used"] == 12
                   and emb["payload_bits"] > 8 * secret.size, f"/embed: {emb}")
             ins = post("/inspect", {"stego": str(tmp / "st.avi")},
-                       counter="EXTRACT_LAUNCHES")
+                       counter="stegotpu_qim_extract_packed")
             check((ins["payload_type"], ins["secret_height"],
                    ins["secret_width"], ins["total_payload_bits"],
                    ins["payload_frames"])
@@ -2776,7 +2741,7 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
                   f"/inspect: {ins}")
             ext = post("/extract", {"stego": str(tmp / "st.avi"),
                                     "output": str(tmp / "x.png"), **keys},
-                       counter="EXTRACT_LAUNCHES")
+                       counter="stegotpu_qim_extract_packed")
             check(ext["success"] and ext["hash_ok"]
                   and np.array_equal(load_image_gray(tmp / "x.png"), secret),
                   f"/extract: {ext}")
@@ -2784,12 +2749,13 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
             check(stz["detected"] and stz["estimated_delta"] == 20,
                   f"/steganalyze: {stz}")
             ver = post("/embed", {**embed, "output": str(tmp / "vst"),
-                                  "verified": True}, counter="CHECK_LAUNCHES")
+                                  "verified": True},
+                       counter="stegotpu_qim_embed_check")
             check(ver["success"] and ver["residual_bits"] == 0,
                   f"verified /embed: {ver}")
             vext = post("/extract", {"stego": str(tmp / "vst.avi"),
                                      "output": str(tmp / "vx.png"), **keys},
-                        counter="EXTRACT_LAUNCHES")
+                        counter="stegotpu_qim_extract_packed")
             check(vext["hash_ok"] and np.array_equal(
                 load_image_gray(tmp / "vx.png"), secret),
                 f"verified /extract: {vext}")
@@ -2867,10 +2833,10 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
                           "priv_key": str(tmp / "k.pem")},
                 "config": StegoConfig(), "procs": 1, "auto_recover": False,
                 "device": resolve_device()}
-        _set_counts()
+        sk.LAUNCHES.clear()
         t0 = time.perf_counter()
         gui.embed(snap)
-        k1 = sk.EMBED_LAUNCHES
+        k1 = sk.LAUNCHES["stegotpu_qim_embed"]
         logs = gui.logs()
         check(any(m.startswith("embedded ") for m, _ in logs)
               and not any(tag == "ERR" for _, tag in logs),
@@ -2887,32 +2853,32 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
             tk = "importable"
         except ImportError as e:
             tk = f"not importable ({e})"
+        k2 = sk.LAUNCHES["stegotpu_qim_extract_packed"]
         print(f"phase 15 GUI workers {w}x{h} on {snap['device']}: embed, "
               "extract procs 1 and procs 2 (thread): SHA3-256 integrity OK, "
-              f"pixel-identical; EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES="
-              f"{sk.EXTRACT_LAUNCHES} (both extracts); "
+              f"pixel-identical; stegotpu_qim_embed={k1} "
+              f"stegotpu_qim_extract_packed={k2} (both extracts); "
               f"{time.perf_counter() - t0:.2f} s host clock; tkinter {tk}",
               flush=True)
-        check(k1 > 0 and sk.EXTRACT_LAUNCHES > 0,
-              f"GUI workers launched EMBED_LAUNCHES={k1} EXTRACT_LAUNCHES="
-              f"{sk.EXTRACT_LAUNCHES}")
+        check(k1 > 0 and k2 > 0, f"GUI workers launched stegotpu_qim_embed="
+              f"{k1} stegotpu_qim_extract_packed={k2}")
 
-        _set_counts()
+        sk.LAUNCHES.clear()
         rc, out = _tool(soak_kernels.main, ["20", "0"])
         check(rc == 0 and out.strip().splitlines()[-1].endswith(
             "20 configs, 0 failures (arms on cuda: oracle 0, xla 0, "
             "pallas 0, plain 0)"), f"soak_kernels: exit {rc}")
-        check(sk.EMBED_LAUNCHES > 0 and sk.EXTRACT_LAUNCHES > 0,
-              f"soak_kernels launched EMBED_LAUNCHES={sk.EMBED_LAUNCHES} "
-              f"EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}")
-        print(f"phase 15 soak_kernels launches: EMBED_LAUNCHES="
-              f"{sk.EMBED_LAUNCHES} EXTRACT_LAUNCHES={sk.EXTRACT_LAUNCHES}",
-              flush=True)
-        _set_counts()
+        k1, k2 = (sk.LAUNCHES[e] for e in ("stegotpu_qim_embed",
+                                            "stegotpu_qim_extract_packed"))
+        check(k1 > 0 and k2 > 0, f"soak_kernels launched stegotpu_qim_embed="
+              f"{k1} stegotpu_qim_extract_packed={k2}")
+        print(f"phase 15 soak_kernels launches: stegotpu_qim_embed={k1} "
+              f"stegotpu_qim_extract_packed={k2}", flush=True)
+        sk.LAUNCHES.clear()
         rc, _ = _tool(soak_product.main, ["3", "0"])
         check(rc == 0, f"soak_product: exit {rc}")
         print("phase 15 soak_product launches: " + " ".join(
-            f"{k}={v}" for k, v in _counts().items() if v), flush=True)
+            f"{k}={v}" for k, v in sk.LAUNCHES.items() if v), flush=True)
         # the trace tool as users run it, in a process of its own: a trace
         # taken late in a long process that has traced before can lose
         # device events (PERF.md, the serving path's finding)

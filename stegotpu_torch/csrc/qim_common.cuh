@@ -120,7 +120,7 @@ __device__ __forceinline__ float pixel_again(uint32_t word, int c) {
                    -kTwo23);
 }
 
-template <class Arith = ArithCvt>
+template <class Arith>
 __device__ __forceinline__ void unpack_rows(const uint2 (&raw)[8], float (&x)[8][8]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r)
@@ -168,7 +168,7 @@ __device__ __forceinline__ float parity(float q) {
 }
 
 // The QIM bit of a coefficient: round(y / delta) mod 2, round half to even.
-template <class Arith = ArithCvt>
+template <class Arith>
 __device__ __forceinline__ uint32_t qim_bit(float y, float delta) {
   if constexpr (Arith::kAddRound)
     return __float_as_uint(__fadd_rn(__fdiv_rn(y, delta), kRoundShift)) & 1u;
@@ -210,7 +210,7 @@ struct HeldBits {
 // is the number of payload bits left at the block's first slot. The
 // caller passes through blocks with rem <= 0, and every block when
 // delta <= 0, without calling this.
-template <int RN, class Arith = ArithCvt, class Mat, class Bits>
+template <int RN, class Arith, class Mat, class Bits>
 __device__ __forceinline__ void embed_block(uint2 (&raw)[8], Mat m, const Bits& bit,
                                             long long rem, int num_ac, float delta) {
   float x[8][8];
@@ -300,7 +300,7 @@ __device__ __forceinline__ void embed_block(uint2 (&raw)[8], Mat m, const Bits& 
 
 // The decode (_extract_bits_f32) of a block's pixels as floats: bit v of
 // byte[g] is round(y[g][v]/delta) mod 2. delta <= 0 reads all-zero bits.
-template <int RN, class Arith = ArithCvt, class Mat>
+template <int RN, class Arith, class Mat>
 __device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], Mat m, float delta,
                                              uint32_t (&byte)[RN]) {
   float y[RN][8];
@@ -317,7 +317,7 @@ __device__ __forceinline__ void slot_bits_of(const float (&x)[8][8], Mat m, floa
 
 // slot_bits_of the block's u8 rows in raw, read exactly as they lie in
 // memory (K3, K4 and K6 pass the quantized stego).
-template <int RN, class Arith = ArithCvt, class Mat>
+template <int RN, class Arith, class Mat>
 __device__ __forceinline__ void slot_bits(const uint2 (&raw)[8], Mat m, float delta,
                                           uint32_t (&byte)[RN]) {
   float x[8][8];

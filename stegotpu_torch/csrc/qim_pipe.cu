@@ -37,12 +37,11 @@
 //
 // The ring stays on cp.async and the CTA's barrier: the same kernel on
 // Hopper's bulk asynchronous copies with a full and an empty mbarrier a
-// slot and no barrier in the loop (pipe_bulk/qim_pipe.cu, a study source
-// outside the library, in three producer forms) lost to it at every ring
-// depth at 1080p B=128, where a CTA walks many tiles: by 10-13% with
-// thread 0 or a producer warp filling, 44-46% with the warps taking turns
-// (H100 80GB HBM3, 700 W). At B=8 it lost by 4-19%, save the producer
-// warp at a ring of 4, 3% faster (PERF.md section 6).
+// slot and no barrier in the loop (in three producer forms) lost to it at
+// every ring depth at 1080p B=128, where a CTA walks many tiles: by 10-13%
+// with thread 0 or a producer warp filling, 44-46% with the warps taking
+// turns (H100 80GB HBM3, 700 W). At B=8 it lost by 4-19%, save the
+// producer warp at a ring of 4, 3% faster (PERF.md section 6).
 //
 // Bound on the H100: memory traffic, K4's bytes (studies/bounds.py
 // "roundtrip_packed"). The ring overlaps the next tiles' loads with the

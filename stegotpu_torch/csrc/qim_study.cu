@@ -179,11 +179,11 @@ qim_ablation_kernel(const void* __restrict__ frames, uint8_t* __restrict__ out,
     } else {
       uint2 raw[8];
       load_rows(static_cast<const uint8_t*>(frames) + off, w, raw);
-      unpack_rows(raw, x);
+      unpack_rows<ArithCvt>(raw, x);
     }
     if constexpr (V == kFull || V == kFullNotrunc) {
       uint32_t byte[RN];
-      slot_bits_of<RN>(x, m, delta, byte);  // K5's decode, ArithCvt
+      slot_bits_of<RN, ArithCvt>(x, m, delta, byte);  // K5's decode
       write_rows<RN>(out, byte, f, by, bx, h, w, stripe_blocks, rows_pad);
     } else {
       float y[RN][8];
@@ -196,7 +196,7 @@ qim_ablation_kernel(const void* __restrict__ frames, uint8_t* __restrict__ out,
 #pragma unroll
         for (int v = 0; v < 8; ++v) {
           if constexpr (V == kNoQim) lane[v] = wrap_u8(y[g][v]);
-          else lane[v] = delta > 0.0f ? qim_bit(y[g][v], delta) : 0u;
+          else lane[v] = delta > 0.0f ? qim_bit<ArithCvt>(y[g][v], delta) : 0u;
         }
         lanes[g] = pack_lanes(lane);
       }
@@ -235,7 +235,7 @@ qim_embed_packedin_kernel(const uint8_t* __restrict__ frames,
 #pragma unroll
     for (int g = 0; g < RN; ++g)
       bits.byte[g] = __ldg(group + static_cast<size_t>(i * RN + g) * bw);
-    embed_block<RN>(raw, m, bits, rem, num_ac, delta);
+    embed_block<RN, ArithCvt>(raw, m, bits, rem, num_ac, delta);
   }
   store_rows(stego + off, w, raw);
 }

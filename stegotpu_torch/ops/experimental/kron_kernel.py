@@ -33,7 +33,7 @@ rejects delta <= 0 anyway.
 
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises.
-``KRON_EMBED_LAUNCHES`` and ``KRON_EXTRACT_LAUNCHES`` count the launches.
+``stripe_kernel.LAUNCHES`` counts the launches by entry point.
 """
 
 from __future__ import annotations
@@ -47,10 +47,8 @@ from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 from stegotpu_torch.ops.experimental.qim_fast import (build_plane_blocks,
                                                       qim_by_plane)
 from stegotpu_torch.ops.stripe_kernel import (_bits_per_frame, _check_frames,
-                                              _check_payload, _launch, _stream)
+                                              _check_payload, _stream, launch)
 
-KRON_EMBED_LAUNCHES = 0
-KRON_EXTRACT_LAUNCHES = 0
 
 _LANE = 128
 
@@ -121,7 +119,6 @@ def embed_frames_kron(frames: torch.Tensor, payload_bits: torch.Tensor,
     (global) marks the payload end. Returns (stego (B, H, W) uint8, bits per
     frame (B,) int32) on the frames' device; on the card both come from the
     one kernel launch."""
-    global KRON_EMBED_LAUNCHES
     b, h, w = _check_domain(frames, delta)
     _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
@@ -132,11 +129,10 @@ def embed_frames_kron(frames: torch.Tensor, payload_bits: torch.Tensor,
         return stego, torch.zeros(b, dtype=torch.int32, device=frames.device)
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    _launch("stegotpu_kron_embed", frames.data_ptr(), payload_bits.data_ptr(),
-            stego.data_ptr(), bpf.data_ptr(), _kron_on(dev).data_ptr(),
-            dev.index, b, h, w, num_ac, int(total_bits), int(bit_offset),
-            float(delta), _stream(dev))
-    KRON_EMBED_LAUNCHES += 1
+    launch("stegotpu_kron_embed", frames.data_ptr(), payload_bits.data_ptr(),
+           stego.data_ptr(), bpf.data_ptr(), _kron_on(dev).data_ptr(),
+           dev.index, b, h, w, num_ac, int(total_bits), int(bit_offset),
+           float(delta), _stream(dev))
     return stego, bpf
 
 
@@ -144,7 +140,6 @@ def extract_frames_kron(frames: torch.Tensor, delta: float,
                         num_ac: int) -> torch.Tensor:
     """K8: the slot bits of every block, (B, C) uint8 in wire order, on the
     frames' device (the signature of ops/qim.extract_frames)."""
-    global KRON_EXTRACT_LAUNCHES
     b, h, w = _check_domain(frames, delta)
     if frames.device.type == "cpu":
         return extract_frames_kron_plain(frames, delta, num_ac)
@@ -152,10 +147,9 @@ def extract_frames_kron(frames: torch.Tensor, delta: float,
                        dtype=torch.uint8, device=frames.device)
     if bits.numel():
         dev = frames.device
-        _launch("stegotpu_kron_extract", frames.data_ptr(), bits.data_ptr(),
-                _kron_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                float(delta), _stream(dev))
-        KRON_EXTRACT_LAUNCHES += 1
+        launch("stegotpu_kron_extract", frames.data_ptr(), bits.data_ptr(),
+               _kron_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+               float(delta), _stream(dev))
     return bits
 
 

@@ -26,20 +26,22 @@ no fallback. All six take the Hopper spelling of the shared block
 arithmetic (csrc/qim_common.cuh ArithHopper: the same bytes, no
 conversion instruction at delta >= 2^-10); one K1, K4 or K6 call is one
 kernel, which writes the bits per frame beside its outputs, and one K3
-call is that kernel behind one memset of its counts. ``EMBED_LAUNCHES``,
-``EXTRACT_LAUNCHES``, ``CHECK_LAUNCHES``, ``ROUNDTRIP_LAUNCHES``,
-``EXTRACT_ROWS_LAUNCHES`` and ``ROUNDTRIP_ROWS_LAUNCHES`` count the kernel
-launches (and nothing else), so a run can show that it went through them.
-Beside them, ``roundtrip_eval`` (csrc/qim_eval.cu, counted by
-``EVAL_LAUNCHES``) computes a round trip's PSNR and bit errors on the card
-in one pass; its plain version is ops/qim.roundtrip_metrics_plain. And
-``packed_rows_to_bits`` (csrc/qim_unpack.cu, counted by
-``UNPACK_LAUNCHES``) takes K2's and K4's packed rows to wire-order bits on
+call is that kernel behind one memset of its counts. Beside them,
+``roundtrip_eval`` (csrc/qim_eval.cu) computes a round trip's PSNR and bit
+errors on the card in one pass; its plain version is
+ops/qim.roundtrip_metrics_plain. And ``packed_rows_to_bits``
+(csrc/qim_unpack.cu) takes K2's and K4's packed rows to wire-order bits on
 the card in one pass; its plain version is ``packed_rows_to_bits_plain``.
-While a profiler records, every launch is the span
-``stegotpu_torch.launch.<entry point>`` and every wire-order unpack a
-wrapper runs on the device is ``stegotpu_torch.unpack``; a blocking wait
-on the device is ``stegotpu_torch.host_wait`` (utils/profiling.annotate).
+
+Every kernel of the library, the study kernels' too, is launched through
+``launch``, which counts each launch that returned no error in
+``LAUNCHES[<entry point>]`` (``LAUNCHES["<entry point>:<variant>"]`` for a
+study entry point that launches several variants), and nothing else, so a
+run can show that it went through them. While a profiler records, every
+launch is the span ``stegotpu_torch.launch.<entry point>`` and every
+wire-order unpack a wrapper runs on the device is
+``stegotpu_torch.unpack``; a blocking wait on the device is
+``stegotpu_torch.host_wait`` (utils/profiling.annotate).
 
 The plain versions compute the same sparse-delta form in f32: blockify,
 ``xb @ K^T`` on the slot columns of the Kronecker DCT matrix K, the QIM
@@ -65,6 +67,8 @@ global bit 0 is the payload's first bit, as in the TPU kernels.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -73,14 +77,9 @@ from stegotpu_torch.ops import _build
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 from stegotpu_torch.utils.profiling import annotate
 
-EMBED_LAUNCHES = 0
-EXTRACT_LAUNCHES = 0
-CHECK_LAUNCHES = 0
-ROUNDTRIP_LAUNCHES = 0
-EXTRACT_ROWS_LAUNCHES = 0
-ROUNDTRIP_ROWS_LAUNCHES = 0
-EVAL_LAUNCHES = 0
-UNPACK_LAUNCHES = 0
+# successful launches by entry point (or "<entry point>:<variant>"): launch
+# is the only writer
+LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
 # --- layout helpers (numpy/int, mirrors of pallas_kernel.py) -----------------
@@ -439,14 +438,16 @@ def _dct_on(device: torch.device) -> torch.Tensor:
     return _DCT_ON_DEVICE[device]
 
 
-def _launch(entry: str, *args) -> None:
-    """Call a C entry point of the kernel library and raise on its CUDA
-    error (a refused launch never runs, and a later synchronize would not
-    report it)."""
+def launch(entry: str, *args, variant: str | None = None) -> None:
+    """Call a C entry point of the kernel library, raise on its CUDA error
+    (a refused launch never runs, and a later synchronize would not report
+    it), and count the launch in LAUNCHES under `entry`, or under
+    "<entry>:<variant>" where one entry point launches several variants."""
     lib = _build.load_library()
     with annotate("stegotpu_torch.launch." + entry):
         rc = getattr(lib, entry)(*args)
     _build.check(lib, rc, f"{entry} launch")
+    LAUNCHES[entry if variant is None else f"{entry}:{variant}"] += 1
 
 
 def _stream(device: torch.device) -> int:
@@ -475,7 +476,6 @@ def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
     On the card both come from the one kernel launch: the kernel writes the
     bits per frame too.
     """
-    global EMBED_LAUNCHES
     b, h, w = _check_frames(frames)
     _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
@@ -486,10 +486,9 @@ def embed_frames(frames: torch.Tensor, payload_bits: torch.Tensor,
         return stego, torch.zeros(b, dtype=torch.int32, device=frames.device)
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    _launch("stegotpu_qim_embed", frames.data_ptr(), payload_bits.data_ptr(),
-            stego.data_ptr(), bpf.data_ptr(), dev.index, b, h, w, num_ac,
-            int(total_bits), int(bit_offset), float(delta), _stream(dev))
-    EMBED_LAUNCHES += 1
+    launch("stegotpu_qim_embed", frames.data_ptr(), payload_bits.data_ptr(),
+           stego.data_ptr(), bpf.data_ptr(), dev.index, b, h, w, num_ac,
+           int(total_bits), int(bit_offset), float(delta), _stream(dev))
     return stego, bpf
 
 
@@ -499,7 +498,6 @@ def extract_frames_packed(frames: torch.Tensor, delta: float,
     layout (B, (H/stripe)*rows_pad, W/8) uint8, on the frames' device.
     Pair with packed_rows_to_bits_host (streaming pipeline) or
     packed_rows_to_bits (on the device)."""
-    global EXTRACT_LAUNCHES
     b, h, w = _check_frames(frames)
     if frames.device.type == "cpu":
         return extract_frames_packed_plain(frames, delta, num_ac)
@@ -507,10 +505,9 @@ def extract_frames_packed(frames: torch.Tensor, delta: float,
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if packed.numel():
         dev = frames.device
-        _launch("stegotpu_qim_extract_packed", frames.data_ptr(),
-                packed.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
-                float(delta), _stream(dev))
-        EXTRACT_LAUNCHES += 1
+        launch("stegotpu_qim_extract_packed", frames.data_ptr(),
+               packed.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
+               float(delta), _stream(dev))
     return packed
 
 
@@ -542,11 +539,10 @@ def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
                         stripe: int) -> torch.Tensor:
     """The wire-order unpack: K2's or K4's packed rows of full frames ->
     (B, C) wire-order bits, on the tensor's device. On the card one launch
-    of csrc/qim_unpack.cu (counted by UNPACK_LAUNCHES), with 16-byte stores
+    of csrc/qim_unpack.cu (counted in LAUNCHES), with 16-byte stores
     where every output row starts on a 16-byte boundary and single bytes
     elsewhere, the same bytes; on the CPU packed_rows_to_bits_plain. Raises
     on anything the kernel does not take (_check_packed)."""
-    global UNPACK_LAUNCHES
     cap = _check_packed(packed, h, w, num_ac, stripe)
     if packed.device.type == "cpu":
         return packed_rows_to_bits_plain(packed, h, w, num_ac, stripe)
@@ -554,11 +550,10 @@ def packed_rows_to_bits(packed: torch.Tensor, h: int, w: int, num_ac: int,
     bits = torch.empty((b, cap), dtype=torch.uint8, device=packed.device)
     if bits.numel():
         dev = packed.device
-        _launch("stegotpu_qim_unpack_packed", packed.data_ptr(),
-                bits.data_ptr(), dev.index, b, h, w, num_ac, stripe,
-                _rows_pad(stripe, rows_per_block(num_ac)),
-                unpack_store_width(bits, w, num_ac), _stream(dev))
-        UNPACK_LAUNCHES += 1
+        launch("stegotpu_qim_unpack_packed", packed.data_ptr(),
+               bits.data_ptr(), dev.index, b, h, w, num_ac, stripe,
+               _rows_pad(stripe, rows_per_block(num_ac)),
+               unpack_store_width(bits, w, num_ac), _stream(dev))
     return bits
 
 
@@ -588,7 +583,6 @@ def extract_frames_rows(frames: torch.Tensor, delta: float,
     row jg*rows_pad + i*rn + g holds the bit of coefficient 8g + x%8 of
     block (jg*stripe/8 + i, x//8); padding rows are 0. Pair with
     rows_to_bits."""
-    global EXTRACT_ROWS_LAUNCHES
     b, h, w = _check_frames(frames)
     if frames.device.type == "cpu":
         return extract_frames_rows_plain(frames, delta, num_ac)
@@ -596,10 +590,9 @@ def extract_frames_rows(frames: torch.Tensor, delta: float,
     rows = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if rows.numel():
         dev = frames.device
-        _launch("stegotpu_qim_extract_rows", frames.data_ptr(),
-                rows.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
-                float(delta), _stream(dev))
-        EXTRACT_ROWS_LAUNCHES += 1
+        launch("stegotpu_qim_extract_rows", frames.data_ptr(),
+               rows.data_ptr(), dev.index, b, h, w, num_ac, stripe, rp,
+               float(delta), _stream(dev))
     return rows
 
 
@@ -613,7 +606,6 @@ def embed_and_extract_frames_packed(
     device. Global bit 0 is the payload's first bit (no bit offset).
     stripe: the packed layout's stripe height, passed explicitly (the
     roofline study's s216/s360 variants); None picks it from H."""
-    global ROUNDTRIP_LAUNCHES
     b, h, w = _check_frames(frames)
     _check_payload(payload_bits, frames, num_ac)
     shape, stripe, rp = _packed_shape(b, h, w, num_ac, w // BLOCK, stripe)
@@ -627,11 +619,10 @@ def embed_and_extract_frames_packed(
                                   device=frames.device), packed
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    _launch("stegotpu_qim_roundtrip_packed", frames.data_ptr(),
-            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
-            packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
-            stripe, rp, float(delta), _stream(dev))
-    ROUNDTRIP_LAUNCHES += 1
+    launch("stegotpu_qim_roundtrip_packed", frames.data_ptr(),
+           payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+           packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+           stripe, rp, float(delta), _stream(dev))
     return stego, bpf, packed
 
 
@@ -659,7 +650,6 @@ def embed_and_check_frames(
     (B, H, W) uint8, bits per frame (B,) int32, errors per frame (B,)
     int32) on the frames' device — the verified embed's fast path. Global
     bit 0 is the payload's first bit (no bit offset)."""
-    global CHECK_LAUNCHES
     b, h, w = _check_frames(frames)
     _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
@@ -673,11 +663,10 @@ def embed_and_check_frames(
     # zeroed by the entry point on the stream the kernel launches on
     errors = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    _launch("stegotpu_qim_embed_check", frames.data_ptr(),
-            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
-            errors.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
-            float(delta), _stream(dev))
-    CHECK_LAUNCHES += 1
+    launch("stegotpu_qim_embed_check", frames.data_ptr(),
+           payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+           errors.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+           float(delta), _stream(dev))
     return stego, bpf, errors
 
 
@@ -691,7 +680,6 @@ def embed_and_extract_frames_rows(
     layout), on the frames' device. Global bit 0 is the payload's first bit
     (no bit offset). On the card all three come from the one kernel
     launch: the kernel writes the bits per frame too."""
-    global ROUNDTRIP_ROWS_LAUNCHES
     b, h, w = _check_frames(frames)
     _check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
@@ -705,11 +693,10 @@ def embed_and_extract_frames_rows(
                                   device=frames.device), rows
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    _launch("stegotpu_qim_roundtrip_rows", frames.data_ptr(),
-            payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
-            rows.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
-            stripe, rp, float(delta), _stream(dev))
-    ROUNDTRIP_ROWS_LAUNCHES += 1
+    launch("stegotpu_qim_roundtrip_rows", frames.data_ptr(),
+           payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+           rows.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+           stripe, rp, float(delta), _stream(dev))
     return stego, bpf, rows
 
 
@@ -776,17 +763,15 @@ def roundtrip_eval(frames: torch.Tensor, stego: torch.Tensor,
     bit_errors counts the flat slots below min(total_bits, B*C) whose bytes
     differ. Nothing here waits for the device. Contiguous, 16-byte aligned
     uint8 CUDA tensors only: raises on anything else."""
-    global EVAL_LAUNCHES
     _check_eval(frames, stego, extracted, payload_bits)
     b, cap = payload_bits.shape
     dev = frames.device
     # the kernel's sums: squared error, bit errors, ticket; then payload bits
     acc = torch.empty(4, dtype=torch.int64, device=dev)
     psnr_db = torch.empty((), dtype=torch.float32, device=dev)
-    _launch("stegotpu_qim_eval", frames.data_ptr(), stego.data_ptr(),
-            frames.numel(), extracted.data_ptr(), payload_bits.data_ptr(),
-            payload_bits.numel(), min(int(total_bits), b * cap),
-            acc.data_ptr(), psnr_db.data_ptr(), acc[3].data_ptr(), dev.index,
-            _stream(dev))
-    EVAL_LAUNCHES += 1
+    launch("stegotpu_qim_eval", frames.data_ptr(), stego.data_ptr(),
+           frames.numel(), extracted.data_ptr(), payload_bits.data_ptr(),
+           payload_bits.numel(), min(int(total_bits), b * cap),
+           acc.data_ptr(), psnr_db.data_ptr(), acc[3].data_ptr(), dev.index,
+           _stream(dev))
     return {"psnr_db": psnr_db, "bit_errors": acc[1], "payload_bits": acc[3]}

@@ -14,8 +14,9 @@ same basenames, each runnable as ``python -m stegotpu_torch.studies.<name>``:
 - ``device_roofline`` (tools/device_roofline.py): K12's variants read from
   the device timeline of ``torch.profiler``.
 
-Each module holds its kernels' wrappers with a launch counter each, their
-plain PyTorch versions, and a ``main(argv)`` whose defaults are the JAX
+Each module holds its kernels' wrappers (launched through
+``stripe_kernel.launch``, which counts them), their plain PyTorch
+versions, and a ``main(argv)`` whose defaults are the JAX
 script's shapes. Times are the card's own: CUDA events around calls queued
 behind a sleep kernel (harness.queued_ms). Without a CUDA device each
 ``main`` exits non-zero. Nothing runs at import.

@@ -11,7 +11,8 @@ K1's byte for byte on the same bits. K1 reads the payload in wire order,
 one u8 per bit; K10 reads an eighth of those bytes.
 
 ``embed_frames_packedin`` launches the kernel on a CUDA tensor and runs
-``embed_frames_packedin_plain`` only on a CPU tensor; ``PACKEDIN_LAUNCHES``
+``embed_frames_packedin_plain`` only on a CPU tensor;
+``stripe_kernel.LAUNCHES["stegotpu_qim_embed_packedin"]``
 counts the launches. ``python -m stegotpu_torch.studies.ab_packed_payload``
 checks K10 against K1 and times both on the card (defaults: the script's
 B=512 at 1080x1920).
@@ -27,8 +28,6 @@ from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.stripe_kernel import payload_to_rows_packed
 from stegotpu_torch.studies import bounds, harness
-
-PACKEDIN_LAUNCHES = 0
 
 
 def _check_packed(packed: torch.Tensor, frames: torch.Tensor,
@@ -63,7 +62,6 @@ def embed_frames_packedin(frames: torch.Tensor, packed: torch.Tensor,
     (H/stripe)*rows_pad, W/8) u8 from payload_to_rows_packed. Returns
     (stego (B, H, W) u8, bits per frame (B,) int32) on the frames' device.
     Global bit 0 is the payload's first bit (no bit offset)."""
-    global PACKEDIN_LAUNCHES
     b, h, w = sk._check_frames(frames)
     stripe, rp = _check_packed(packed, frames, num_ac)
     if frames.device.type == "cpu":
@@ -73,11 +71,10 @@ def embed_frames_packedin(frames: torch.Tensor, packed: torch.Tensor,
     stego = torch.empty_like(frames)
     if stego.numel():
         dev = frames.device
-        sk._launch("stegotpu_qim_embed_packedin", frames.data_ptr(),
-                   packed.data_ptr(), stego.data_ptr(),
-                   sk._dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                   int(total_bits), stripe, rp, float(delta), sk._stream(dev))
-        PACKEDIN_LAUNCHES += 1
+        sk.launch("stegotpu_qim_embed_packedin", frames.data_ptr(),
+                  packed.data_ptr(), stego.data_ptr(),
+                  sk._dct_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                  int(total_bits), stripe, rp, float(delta), sk._stream(dev))
     return stego, sk._bits_per_frame(b, cap, int(total_bits), 0,
                                      frames.device)
 

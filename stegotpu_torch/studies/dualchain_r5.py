@@ -13,7 +13,8 @@ bits per frame (written by the kernel) and packed bits are K4's byte for
 byte. B must be even.
 
 ``dual_roundtrip_packed`` launches the kernel on a CUDA tensor and runs
-``dual_roundtrip_packed_plain`` only on a CPU tensor; ``DUAL_LAUNCHES``
+``dual_roundtrip_packed_plain`` only on a CPU tensor;
+``stripe_kernel.LAUNCHES["stegotpu_qim_roundtrip_dual"]``
 counts the launches. ``python -m stegotpu_torch.studies.dualchain_r5``
 checks K11 against K4 and times both on the card (defaults: the script's
 B=512 at 1080x1920).
@@ -28,8 +29,6 @@ import torch
 from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.studies import bounds, harness
-
-DUAL_LAUNCHES = 0
 
 
 def _check_even(frames: torch.Tensor) -> None:
@@ -55,7 +54,6 @@ def dual_roundtrip_packed(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K11: K4's (stego, bits per frame, packed) with two frames per
     thread. B must be even."""
-    global DUAL_LAUNCHES
     b, h, w = sk._check_frames(frames)
     sk._check_payload(payload_bits, frames, num_ac)
     _check_even(frames)
@@ -70,11 +68,10 @@ def dual_roundtrip_packed(
                                   device=frames.device), packed
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    sk._launch("stegotpu_qim_roundtrip_dual", frames.data_ptr(),
-               payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
-               packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
-               stripe, rp, float(delta), sk._stream(dev))
-    DUAL_LAUNCHES += 1
+    sk.launch("stegotpu_qim_roundtrip_dual", frames.data_ptr(),
+              payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+              packed.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
+              stripe, rp, float(delta), sk._stream(dev))
     return stego, bpf, packed
 
 

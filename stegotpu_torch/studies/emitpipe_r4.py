@@ -19,8 +19,8 @@ rows: the kernel reads the wire-order payload.
 
 ``roundtrip_pipelined_packed`` launches the kernel on a CUDA tensor and
 runs ``roundtrip_pipelined_packed_plain`` (K4's plain version) only on a
-CPU tensor; ``PIPE_BUF2_LAUNCHES``, ``PIPE_BUF3_LAUNCHES`` and
-``PIPE_BUF4_LAUNCHES`` count its launches per ring depth.
+CPU tensor; ``stripe_kernel.LAUNCHES["stegotpu_qim_roundtrip_pipe:buf<N>"]``
+counts its launches per ring depth N.
 ``python -m stegotpu_torch.studies.emitpipe_r4 --bufs N`` checks the round
 trip against the oracle's extract and times the kernel on the card
 (defaults: the script's B=128 at 1080x1920, --bufs 2; ``--uncapped``
@@ -39,10 +39,6 @@ from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import qim
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.studies import bounds, harness
-
-PIPE_BUF2_LAUNCHES = 0
-PIPE_BUF3_LAUNCHES = 0
-PIPE_BUF4_LAUNCHES = 0
 
 BUFS = (2, 3, 4)
 # the round trip's bit errors on uniform-random covers, where clipping loses
@@ -89,13 +85,11 @@ def roundtrip_pipelined_packed(
                                   device=frames.device), packed
     bpf = torch.empty(b, dtype=torch.int32, device=frames.device)
     dev = frames.device
-    sk._launch("stegotpu_qim_roundtrip_pipe", frames.data_ptr(),
-               payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
-               packed.data_ptr(), dev.index, bufs, int(capped), b, h, w,
-               num_ac, int(total_bits), stripe, rp, float(delta),
-               sk._stream(dev))
-    counter = f"PIPE_BUF{bufs}_LAUNCHES"
-    globals()[counter] += 1
+    sk.launch("stegotpu_qim_roundtrip_pipe", frames.data_ptr(),
+              payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+              packed.data_ptr(), dev.index, bufs, int(capped), b, h, w,
+              num_ac, int(total_bits), stripe, rp, float(delta),
+              sk._stream(dev), variant=f"buf{bufs}")
     return stego, bpf, packed
 
 

@@ -19,7 +19,8 @@ with zero padding rows:
 The JAX script hands its kernels a single-pass bf16 horizontal matrix, so
 its ``kern_full`` is not the wire K5; the port's ``full`` is (ROADMAP
 queue 3). ``ablate`` launches the kernel on a CUDA tensor and runs
-``ablate_plain`` only on a CPU tensor; ``<VARIANT>_LAUNCHES`` count the
+``ablate_plain`` only on a CPU tensor;
+``stripe_kernel.LAUNCHES["stegotpu_qim_ablation:<variant>"]`` counts the
 launches. ``python -m stegotpu_torch.studies.extract_ablation`` times each
 variant on the card (defaults: the script's B=128 at 1080x1920).
 """
@@ -37,15 +38,6 @@ from stegotpu_torch.ops.dct import blockify, dct_matrix
 from stegotpu_torch.studies import bounds, harness
 
 VARIANTS = ("full", "no_qim", "no_horiz", "io_only", "io_f4", "full_notrunc")
-
-FULL_LAUNCHES = 0
-NO_QIM_LAUNCHES = 0
-NO_HORIZ_LAUNCHES = 0
-IO_ONLY_LAUNCHES = 0
-IO_F4_LAUNCHES = 0
-FULL_NOTRUNC_LAUNCHES = 0
-
-COUNTERS = {v: f"{v.upper()}_LAUNCHES" for v in VARIANTS}
 
 
 def _wrap_u8(y: torch.Tensor) -> torch.Tensor:
@@ -126,11 +118,10 @@ def ablate(frames: torch.Tensor, delta: float, num_ac: int,
     out = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if out.numel():
         dev = frames.device
-        sk._launch("stegotpu_qim_ablation", frames.data_ptr(), out.data_ptr(),
-                   sk._dct_on(dev).data_ptr(), dev.index,
-                   VARIANTS.index(variant), b, h, w, num_ac, stripe, rp,
-                   float(delta), sk._stream(dev))
-        globals()[COUNTERS[variant]] += 1
+        sk.launch("stegotpu_qim_ablation", frames.data_ptr(), out.data_ptr(),
+                  sk._dct_on(dev).data_ptr(), dev.index,
+                  VARIANTS.index(variant), b, h, w, num_ac, stripe, rp,
+                  float(delta), sk._stream(dev), variant=variant)
     return out
 
 

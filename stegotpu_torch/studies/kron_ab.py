@@ -14,8 +14,8 @@ the zero-tolerance identity that ``chip_smoke.py`` phase 10 and
 ``embed_frames_kron_smem`` and ``extract_frames_kron_smem`` take the
 arguments of ``kron_kernel.embed_frames_kron`` and ``extract_frames_kron``
 and launch the witness on a CUDA tensor; on a CPU tensor they run K7's and
-K8's plain versions. ``KRON_EMBED_SMEM_LAUNCHES`` and
-``KRON_EXTRACT_SMEM_LAUNCHES`` count the launches.
+K8's plain versions. ``stripe_kernel.LAUNCHES`` counts the launches by
+entry point.
 
     python -m stegotpu_torch.studies.kron_ab [--batch 8] [--large-batch 128]
 
@@ -49,9 +49,6 @@ from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.experimental import kron_kernel as kk
 from stegotpu_torch.studies import bounds, harness, sass, stripe_cap
 
-KRON_EMBED_SMEM_LAUNCHES = 0
-KRON_EXTRACT_SMEM_LAUNCHES = 0
-
 
 def embed_frames_kron_smem(frames: torch.Tensor, payload_bits: torch.Tensor,
                            total_bits: int, delta: float, num_ac: int,
@@ -59,7 +56,6 @@ def embed_frames_kron_smem(frames: torch.Tensor, payload_bits: torch.Tensor,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The witness of K7: (stego (B, H, W) uint8, bits per frame (B,)
     int32), the arguments and results of kron_kernel.embed_frames_kron."""
-    global KRON_EMBED_SMEM_LAUNCHES
     b, h, w = kk._check_domain(frames, delta)
     cap = sk._check_payload(payload_bits, frames, num_ac)
     if frames.device.type == "cpu":
@@ -68,12 +64,11 @@ def embed_frames_kron_smem(frames: torch.Tensor, payload_bits: torch.Tensor,
     stego = torch.empty_like(frames)
     if stego.numel():
         dev = frames.device
-        sk._launch("stegotpu_kron_embed_smem", frames.data_ptr(),
-                   payload_bits.data_ptr(), stego.data_ptr(),
-                   kk._kron_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
-                   int(total_bits), int(bit_offset), float(delta),
-                   sk._stream(dev))
-        KRON_EMBED_SMEM_LAUNCHES += 1
+        sk.launch("stegotpu_kron_embed_smem", frames.data_ptr(),
+                  payload_bits.data_ptr(), stego.data_ptr(),
+                  kk._kron_on(dev).data_ptr(), dev.index, b, h, w, num_ac,
+                  int(total_bits), int(bit_offset), float(delta),
+                  sk._stream(dev))
     return stego, sk._bits_per_frame(b, cap, int(total_bits), int(bit_offset),
                                      frames.device)
 
@@ -82,7 +77,6 @@ def extract_frames_kron_smem(frames: torch.Tensor, delta: float,
                              num_ac: int) -> torch.Tensor:
     """The witness of K8: (B, C) uint8 wire-order slot bits, as
     kron_kernel.extract_frames_kron."""
-    global KRON_EXTRACT_SMEM_LAUNCHES
     b, h, w = kk._check_domain(frames, delta)
     if frames.device.type == "cpu":
         return kk.extract_frames_kron_plain(frames, delta, num_ac)
@@ -90,10 +84,9 @@ def extract_frames_kron_smem(frames: torch.Tensor, delta: float,
                        dtype=torch.uint8, device=frames.device)
     if bits.numel():
         dev = frames.device
-        sk._launch("stegotpu_kron_extract_smem", frames.data_ptr(),
-                   bits.data_ptr(), kk._kron_on(dev).data_ptr(), dev.index, b,
-                   h, w, num_ac, float(delta), sk._stream(dev))
-        KRON_EXTRACT_SMEM_LAUNCHES += 1
+        sk.launch("stegotpu_kron_extract_smem", frames.data_ptr(),
+                  bits.data_ptr(), kk._kron_on(dev).data_ptr(), dev.index, b,
+                  h, w, num_ac, float(delta), sk._stream(dev))
     return bits
 
 

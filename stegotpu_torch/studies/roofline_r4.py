@@ -21,7 +21,8 @@ height. A variant whose stripe does not divide the height prints an error
 row, and the study exits 1. The JAX variants ``fused_pp``, ``fused_arb``
 and ``fused_cost`` set Mosaic compiler options; each is printed as a row
 with ``"counterpart": null`` and the reason.
-``COPY_LAUNCHES`` and ``DMASPEC_LAUNCHES`` count the launches.
+``stripe_kernel.LAUNCHES["stegotpu_copy:copy"]`` and
+``LAUNCHES["stegotpu_copy:dmaspec"]`` count the launches.
 ``python -m stegotpu_torch.studies.roofline_r4`` times each variant on the
 card (defaults: the script's B=128 at 1080x1920; at B=128 the working set
 is some 580 MB, far beyond the 50 MB L2).
@@ -38,9 +39,6 @@ from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.ops.stripe_kernel import payload_to_rows_packed
 from stegotpu_torch.studies import bounds, emitpipe_r4, harness
-
-COPY_LAUNCHES = 0
-DMASPEC_LAUNCHES = 0
 
 _COPY, _DMASPEC = 0, 1  # csrc/qim_study.cu CopyVariant
 
@@ -80,7 +78,6 @@ def copy_frames_plain(frames: torch.Tensor) -> torch.Tensor:
 def copy_frames(frames: torch.Tensor) -> torch.Tensor:
     """K12 copy: a new (B, H, W) u8 tensor equal to frames, on their
     device."""
-    global COPY_LAUNCHES
     b, h, w = sk._check_frames(frames)
     if frames.device.type == "cpu":
         return copy_frames_plain(frames)
@@ -90,10 +87,9 @@ def copy_frames(frames: torch.Tensor) -> torch.Tensor:
     stego = torch.empty_like(frames)
     if stego.numel():
         dev = frames.device
-        sk._launch("stegotpu_copy", frames.data_ptr(), None, stego.data_ptr(),
-                   None, dev.index, _COPY, b, h, w, 0, BLOCK, BLOCK,
-                   sk._stream(dev))
-        COPY_LAUNCHES += 1
+        sk.launch("stegotpu_copy", frames.data_ptr(), None, stego.data_ptr(),
+                  None, dev.index, _COPY, b, h, w, 0, BLOCK, BLOCK,
+                  sk._stream(dev), variant="copy")
     return stego
 
 
@@ -111,7 +107,6 @@ def dmaspec(frames: torch.Tensor, payload_bits: torch.Tensor, num_ac: int,
     """K12 dmaspec: K4's inputs read and its outputs written, with no
     math. Returns (stego = frames, packed = payload_to_rows_packed of the
     payload), on the frames' device."""
-    global DMASPEC_LAUNCHES
     b, h, w = sk._check_frames(frames)
     sk._check_payload(payload_bits, frames, num_ac)
     shape, stripe, rp = sk._packed_shape(b, h, w, num_ac, w // BLOCK, stripe)
@@ -121,10 +116,10 @@ def dmaspec(frames: torch.Tensor, payload_bits: torch.Tensor, num_ac: int,
     packed = torch.empty(shape, dtype=torch.uint8, device=frames.device)
     if stego.numel():
         dev = frames.device
-        sk._launch("stegotpu_copy", frames.data_ptr(), payload_bits.data_ptr(),
-                   stego.data_ptr(), packed.data_ptr(), dev.index, _DMASPEC,
-                   b, h, w, num_ac, stripe, rp, sk._stream(dev))
-        DMASPEC_LAUNCHES += 1
+        sk.launch("stegotpu_copy", frames.data_ptr(), payload_bits.data_ptr(),
+                  stego.data_ptr(), packed.data_ptr(), dev.index, _DMASPEC,
+                  b, h, w, num_ac, stripe, rp, sk._stream(dev),
+                  variant="dmaspec")
     return stego, packed
 
 

@@ -18,7 +18,7 @@ one library per entry of ``--minb`` (``k3:9`` is nvcc
 entry of ``--src`` (``name=DIR``, or ``name=DIR:NAME=VALUE...`` with -D
 flags: each source that DIR holds in place of csrc/'s, its headers found
 beside it or else in csrc/: sources with the same C interface, such as
-one step of a redesign, e.g. ``csrc/pipe_bulk``), each under
+one step of a redesign), each under
 ``_build/stripe_cap/``, all nvcc at once, and reads each build's
 registers and spill bytes from ptxas. The kernels it holds and times are
 K4 (the yardstick) and those the builds vary: the kernels whose cap
@@ -35,7 +35,7 @@ together exceed the L2 (the inputs of chip_smoke.py phase 4; ``--batch
 row names the card.
 
     python -m stegotpu_torch.studies.stripe_cap [--minb k1:1,k13_2:7]
-        [--src step1=DIR,bulk=DIR:STEGOTPU_K13_PRODUCER=1] [--num-ac 10]
+        [--src step1=DIR,step2=DIR:NAME=VALUE] [--num-ac 10]
         [--batch 8]
 """
 

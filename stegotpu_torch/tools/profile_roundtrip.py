@@ -12,7 +12,8 @@ Writes ``trace.json`` (Chrome trace format; open in Perfetto) under
 ``--out`` (default ``traces/roundtrip`` under the working directory; at
 the root of a checkout, a directory that .gitignore lists) and prints one
 JSON line: backend (the device), trace_dir, files, ``k4_launches``, the
-K4 launches of the traced calls (stripe_kernel.ROUNDTRIP_LAUNCHES), and
+K4 launches of the traced calls
+(``stripe_kernel.LAUNCHES["stegotpu_qim_roundtrip_packed"]``), and
 ``k4_events``, the count of trace events of the CUDA kernel
 ``qim_roundtrip_packed_kernel`` (both 0 on the CPU, where the plain
 version runs). Exits 1, with one line on stderr, when the trace holds
@@ -90,11 +91,12 @@ def main(argv=None) -> int:
     step()  # build, load and warm outside the trace
 
     out = Path(args.out)
-    before = sk.ROUNDTRIP_LAUNCHES
+    k4 = "stegotpu_qim_roundtrip_packed"
+    before = sk.LAUNCHES[k4]
     with device_trace(out):
         for _ in range(args.iters):
             step()
-    launches = sk.ROUNDTRIP_LAUNCHES - before
+    launches = sk.LAUNCHES[k4] - before
 
     produced = sorted(str(p.relative_to(out)) for p in out.rglob("*")
                       if p.is_file())

@@ -39,6 +39,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _launches(*entries):
+    """The launch counts of `entries` in stripe_kernel.LAUNCHES."""
+    return tuple(sk.LAUNCHES[e] for e in entries)
+
+
 def _inputs(dev, b, h, w, num_ac, frac, seed=5):
     rng = np.random.default_rng(seed)
     frames = torch.from_numpy(rng.integers(16, 240, (b, h, w), np.uint8))
@@ -66,7 +71,7 @@ def _near_boundary(frames, delta, num_ac):
                                           (2, 768, 1360, 15)])
 def test_kernels_match_plain(dev, b, h, w, num_ac):
     frames, payload, total = _inputs(dev, b, h, w, num_ac, 0.6)
-    before = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES)
+    before = _launches("stegotpu_qim_embed", "stegotpu_qim_extract_packed")
     s_k, bpf_k = sk.embed_frames(frames, payload, total, 20.0, num_ac, OFFSET)
     s_p, bpf_p = sk.embed_frames_plain(frames, payload, total, 20.0, num_ac,
                                        OFFSET)
@@ -84,8 +89,8 @@ def test_kernels_match_plain(dev, b, h, w, num_ac):
     n = total - OFFSET
     got = sk.extract_frames(s_k, 20.0, num_ac).reshape(-1)[:n]
     assert torch.equal(got, payload.reshape(-1)[:n])
-    assert (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES) == (before[0] + 1,
-                                                        before[1] + 3)
+    assert _launches("stegotpu_qim_embed", "stegotpu_qim_extract_packed") == (
+        before[0] + 1, before[1] + 3)
 
 
 def test_passthrough_and_nonpositive_delta(dev):
@@ -104,10 +109,11 @@ def test_pipeline_round_trip_launches_kernels(dev):
     cover = rng.integers(16, 240, (4, 120, 160), np.uint8)
     bits = rng.integers(0, 2, 5000, np.uint8)
     cfg = StegoConfig()
-    sk.EMBED_LAUNCHES = sk.EXTRACT_LAUNCHES = 0
+    sk.LAUNCHES.clear()
     stego, bpf = embed_payload_into_gray_frames(cover, bits, cfg, device=dev)
     got = extract_bits_from_gray_frames(stego, cfg, device=dev)
-    assert (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES) == (1, 1)
+    assert _launches("stegotpu_qim_embed",
+                     "stegotpu_qim_extract_packed") == (1, 1)
     assert bpf.tolist() == [3000, 2000, 0, 0]
     np.testing.assert_array_equal(got[:5000], bits)
     np.testing.assert_array_equal(stego[2:], cover[2:])
@@ -352,16 +358,15 @@ def test_fused_kernels_launch_once_each(dev, tmp_path):
     from stegotpu_torch.studies import device_roofline as dr
 
     frames, payload, total = _cover(dev, "mid", 2, 48, 128, 10)
-    before = (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-              sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES,
-              sk.UNPACK_LAUNCHES)
+    entries = ("stegotpu_qim_embed_check", "stegotpu_qim_roundtrip_packed",
+               "stegotpu_qim_extract_rows", "stegotpu_qim_roundtrip_rows",
+               "stegotpu_qim_unpack_packed")
+    before = _launches(*entries)
     sk.embed_and_check_frames(frames, payload, total, 20.0, 10)
     sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
     sk.extract_frames_rows(frames, 20.0, 10)
     sk.embed_and_extract_frames_rows(frames, payload, total, 20.0, 10)
-    assert (sk.CHECK_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-            sk.EXTRACT_ROWS_LAUNCHES, sk.ROUNDTRIP_ROWS_LAUNCHES,
-            sk.UNPACK_LAUNCHES) == tuple(n + 1 for n in before)
+    assert _launches(*entries) == tuple(n + 1 for n in before)
     summ = dr.parse_device_timeline(dr._trace(
         lambda: sk.embed_and_extract_frames_rows(frames, payload, total, 20.0,
                                                  10), 4, tmp_path / "k6.json"), 4)
@@ -383,10 +388,10 @@ def test_verified_fast_path_on_card(dev):
     for frames in (torch.from_numpy(rng.integers(60, 196, (2, h, w), np.uint8)),
                    torch.zeros((2, h, w), dtype=torch.uint8)):
         frames = frames.to(dev)
-        before = sk.CHECK_LAUNCHES
+        before = sk.LAUNCHES["stegotpu_qim_embed_check"]
         stego, bpf, residual = embed_frames_verified_fast(
             frames, payload, 2 * cap, 20.0, num_ac)
-        assert sk.CHECK_LAUNCHES == before + 1
+        assert sk.LAUNCHES["stegotpu_qim_embed_check"] == before + 1
         assert int(residual) == 0 and bpf.tolist() == [cap, cap]
         assert torch.equal(sk.extract_frames(stego, 20.0, num_ac), payload)
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -419,9 +424,9 @@ def test_roundtrip_rows_identities(dev, b, h, w, num_ac, delta, kind):
     at delta 8 and 20."""
     frames, payload, total = _cover(dev, kind, b, h, w, num_ac)
     args = (frames, payload, total, delta, num_ac)
-    before = sk.ROUNDTRIP_ROWS_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_roundtrip_rows"]
     s6, bpf6, rows6 = sk.embed_and_extract_frames_rows(*args)
-    assert sk.ROUNDTRIP_ROWS_LAUNCHES == before + 1
+    assert sk.LAUNCHES["stegotpu_qim_roundtrip_rows"] == before + 1
     s1, bpf1 = sk.embed_frames(*args)
     assert torch.equal(s6, s1) and torch.equal(bpf6, bpf1)
     assert torch.equal(rows6, sk.extract_frames_rows(s6, delta, num_ac))
@@ -481,7 +486,7 @@ def test_kron_kernels_match_plain(dev, b, h, w, num_ac, frac):
     from stegotpu_torch.ops.experimental.qim_fast import build_state_plane
 
     frames, payload, total = _kron_inputs(dev, b, h, w, num_ac, frac)
-    before = (kk.KRON_EMBED_LAUNCHES, kk.KRON_EXTRACT_LAUNCHES)
+    before = _launches("stegotpu_kron_embed", "stegotpu_kron_extract")
     s7, bpf7 = kk.embed_frames_kron(frames, payload, total, 20.0, num_ac,
                                     OFFSET)
     s7p, bpf7p = kk.embed_frames_kron_plain(frames, payload, total, 20.0,
@@ -500,7 +505,7 @@ def test_kron_kernels_match_plain(dev, b, h, w, num_ac, frac):
         assert not ((bits8 != bits8p) & ~_near_boundary(x, 20.0, num_ac)).any()
     n = total - OFFSET
     assert torch.equal(bits8.reshape(-1)[:n], payload.reshape(-1)[:n])
-    assert (kk.KRON_EMBED_LAUNCHES, kk.KRON_EXTRACT_LAUNCHES) == (
+    assert _launches("stegotpu_kron_embed", "stegotpu_kron_extract") == (
         before[0] + 1, before[1] + 2)
 
 
@@ -510,7 +515,7 @@ def test_kron_wrappers_keep_the_domain(dev):
     from stegotpu_torch.ops.experimental import kron_kernel as kk
 
     frames, payload, total = _kron_inputs(dev, 1, 48, 120, 10, 1.0)
-    before = (kk.KRON_EMBED_LAUNCHES, kk.KRON_EXTRACT_LAUNCHES)
+    before = _launches("stegotpu_kron_embed", "stegotpu_kron_extract")
     with pytest.raises(ValueError, match="128"):
         kk.embed_frames_kron(frames, payload, total, 20.0, 10)
     with pytest.raises(ValueError, match="128"):
@@ -521,7 +526,7 @@ def test_kron_wrappers_keep_the_domain(dev):
             kk.embed_frames_kron(frames, payload, total, delta, 10)
         with pytest.raises(ValueError, match="delta"):
             kk.extract_frames_kron(frames, delta, 10)
-    assert (kk.KRON_EMBED_LAUNCHES, kk.KRON_EXTRACT_LAUNCHES) == before
+    assert _launches("stegotpu_kron_embed", "stegotpu_kron_extract") == before
 
 
 @pytest.mark.parametrize("delta", [20.0, 2.0**-11])
@@ -542,8 +547,8 @@ def test_kron_kernels_match_witness(dev, b, h, w, num_ac, delta):
     frames = torch.from_numpy(rng.integers(16, 240, (b, h, w), np.uint8)).to(dev)
     cap = (h // 8) * (w // 8) * num_ac
     payload = torch.from_numpy(rng.integers(0, 2, (b, cap), np.uint8)).to(dev)
-    before = (kron_ab.KRON_EMBED_SMEM_LAUNCHES,
-              kron_ab.KRON_EXTRACT_SMEM_LAUNCHES)
+    before = _launches("stegotpu_kron_embed_smem",
+                       "stegotpu_kron_extract_smem")
     for n in (b * cap, b * cap - num_ac // 2 - 1, cap // 2 + 3):
         total = OFFSET + n
         s7, bpf7 = kk.embed_frames_kron(frames, payload, total, delta, num_ac,
@@ -556,9 +561,9 @@ def test_kron_kernels_match_witness(dev, b, h, w, num_ac, delta):
             assert torch.equal(kk.extract_frames_kron(x, delta, num_ac),
                                kron_ab.extract_frames_kron_smem(x, delta,
                                                                 num_ac))
-    assert (kron_ab.KRON_EMBED_SMEM_LAUNCHES,
-            kron_ab.KRON_EXTRACT_SMEM_LAUNCHES) == (before[0] + 3,
-                                                    before[1] + 6)
+    assert _launches("stegotpu_kron_embed_smem",
+                     "stegotpu_kron_extract_smem") == (before[0] + 3,
+                                                       before[1] + 6)
 
 
 def test_metrics_on_card(dev):
@@ -645,9 +650,9 @@ def test_eval_kernel_matches_plain_and_float64(dev, kind, b, h, w, cap,
     results on the card."""
     frames, stego, extracted, payload = _eval_inputs(dev, kind, b, h, w, cap)
     t = EVAL_TOTALS[total](cap, b * cap)
-    before = sk.EVAL_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_eval"]
     m = qim.roundtrip_metrics(frames, stego, extracted, payload, t)
-    assert sk.EVAL_LAUNCHES == before + 1
+    assert sk.LAUNCHES["stegotpu_qim_eval"] == before + 1
     want = qim.roundtrip_metrics_plain(frames, stego, extracted, payload, t)
     assert [(v.dim(), v.dtype, v.device) for v in m.values()] == [
         (0, torch.float32, dev), (0, torch.int64, dev), (0, torch.int64, dev)]
@@ -712,9 +717,9 @@ def test_unpack_kernel_matches_plain(dev, b, h, w, num_ac, stripe, offset):
     flat = torch.randint(0, 256, (n + offset,), generator=gen, device=dev,
                          dtype=torch.uint8)
     packed = flat[offset:].view(shape)
-    before = sk.UNPACK_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_unpack_packed"]
     got = sk.packed_rows_to_bits(packed, h, w, num_ac, stripe)
-    assert sk.UNPACK_LAUNCHES == before + 1
+    assert sk.LAUNCHES["stegotpu_qim_unpack_packed"] == before + 1
     want = sk.packed_rows_to_bits_plain(packed, h, w, num_ac, stripe)
     torch.cuda.synchronize()
     assert got.device == packed.device and got.dtype == torch.uint8
@@ -732,11 +737,11 @@ def test_round_trips_unpack_through_the_kernel(dev):
     stego, _, packed = sk.embed_and_extract_frames_packed(frames, payload,
                                                           total, 20.0, 10)
     want = sk.packed_rows_to_bits_plain(packed, 1080, 1920, 10, 120)
-    before = sk.UNPACK_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_unpack_packed"]
     _, _, bits = sk.embed_and_extract_frames(frames, payload, total, 20.0, 10)
     assert torch.equal(bits, want)
     assert torch.equal(sk.extract_frames(stego, 20.0, 10), want)
-    assert sk.UNPACK_LAUNCHES == before + 2
+    assert sk.LAUNCHES["stegotpu_qim_unpack_packed"] == before + 2
 
 
 # --- the study kernels K9-K12 (stegotpu_torch/studies) -------------------------
@@ -759,11 +764,11 @@ def test_ablation_kernel(dev, b, h, w, num_ac, kind):
 
     frames, _, _ = _cover(dev, kind, b, h, w, num_ac)
     r5 = sk.extract_frames_rows(frames, 20.0, num_ac)
-    before = [getattr(ea, ea.COUNTERS[v]) for v in ABLATIONS]
+    entries = [f"stegotpu_qim_ablation:{v}" for v in ABLATIONS]
+    before = _launches(*entries)
     out = {v: ea.ablate(frames.float() if v == "full_notrunc" else frames,
                         20.0, num_ac, v) for v in ABLATIONS}
-    assert [getattr(ea, ea.COUNTERS[v]) for v in ABLATIONS] == \
-        [n + 1 for n in before]
+    assert _launches(*entries) == tuple(n + 1 for n in before)
     assert torch.equal(out["full"], r5)
     assert torch.equal(out["full_notrunc"], r5)
     for v in ("io_only", "io_f4"):
@@ -820,15 +825,15 @@ def test_copy_and_dmaspec_kernels(dev):
     from stegotpu_torch.studies import roofline_r4 as rr
 
     frames, payload, _ = _cover(dev, "mid", 4, 1080, 1920, 10)
-    before = (rr.COPY_LAUNCHES, rr.DMASPEC_LAUNCHES)
+    before = _launches("stegotpu_copy:copy", "stegotpu_copy:dmaspec")
     assert torch.equal(rr.copy_frames(frames), frames)
     for stripe in (None, 216, 360):
         s, p = rr.dmaspec(frames, payload, 10, stripe)
         assert torch.equal(s, frames)
         assert torch.equal(p, sk.payload_to_rows_packed(
             payload, 1080, 1920, 10, stripe or 120))
-    assert (rr.COPY_LAUNCHES, rr.DMASPEC_LAUNCHES) == (before[0] + 1,
-                                                       before[1] + 3)
+    assert _launches("stegotpu_copy:copy", "stegotpu_copy:dmaspec") == (
+        before[0] + 1, before[1] + 3)
     with pytest.raises(ValueError, match="16-byte"):
         rr.copy_frames(frames.reshape(-1)[8:8 + 4 * 48 * 64].reshape(4, 48, 64))
 
@@ -870,14 +875,14 @@ def test_entry_points_default_to_the_card(dev):
     cover = rng.integers(16, 240, (2, 120, 160), np.uint8)
     bits = rng.integers(0, 2, 3000, np.uint8)
     cfg = StegoConfig()
-    before = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-              sk.EXTRACT_ROWS_LAUNCHES)
+    entries = ("stegotpu_qim_embed", "stegotpu_qim_extract_packed",
+               "stegotpu_qim_roundtrip_packed", "stegotpu_qim_extract_rows")
+    before = _launches(*entries)
     stego, _ = embed_payload_into_gray_frames(cover, bits, cfg)
     got = extract_bits_from_gray_frames(stego, cfg)
     np.testing.assert_array_equal(got[:3000], bits)
     assert quick_exactness_check()["ok"]
-    after = (sk.EMBED_LAUNCHES, sk.EXTRACT_LAUNCHES, sk.ROUNDTRIP_LAUNCHES,
-             sk.EXTRACT_ROWS_LAUNCHES)
+    after = _launches(*entries)
     assert all(a > b for a, b in zip(after, before)), (before, after)
 
 
@@ -927,10 +932,10 @@ def test_pipe_kernel_is_k4(dev, b, h, w, num_ac, frac, bufs, capped):
         fr = _misaligned(frames, f_off) if f_off else frames
         pl = _misaligned(payload, p_off) if p_off else payload
         args = (fr, pl, total, delta, num_ac)
-        counter = f"PIPE_BUF{bufs}_LAUNCHES"
-        before = getattr(ep, counter)
+        entry = f"stegotpu_qim_roundtrip_pipe:buf{bufs}"
+        before = sk.LAUNCHES[entry]
         got = ep.roundtrip_pipelined_packed(*args, bufs=bufs, capped=capped)
-        assert getattr(ep, counter) == before + 1
+        assert sk.LAUNCHES[entry] == before + 1
         ref = sk.embed_and_extract_frames_packed(*args)
         others = [got]
         if b % 2 == 0 and bufs == 2 and capped:  # two frames a thread

@@ -216,12 +216,11 @@ def test_ring_depth_is_2_3_or_4():
         for bufs in (1, 5):
             with pytest.raises(ValueError, match="2, 3 or 4"):
                 fn(*args, bufs=bufs)
-    before = (emitpipe_r4.PIPE_BUF2_LAUNCHES, emitpipe_r4.PIPE_BUF3_LAUNCHES,
-              emitpipe_r4.PIPE_BUF4_LAUNCHES)
+    keys = [f"stegotpu_qim_roundtrip_pipe:buf{n}" for n in emitpipe_r4.BUFS]
+    before = [sk.LAUNCHES[k] for k in keys]
     for bufs in emitpipe_r4.BUFS:  # the plain version launches nothing
         emitpipe_r4.roundtrip_pipelined_packed(*args, bufs=bufs)
-    assert (emitpipe_r4.PIPE_BUF2_LAUNCHES, emitpipe_r4.PIPE_BUF3_LAUNCHES,
-            emitpipe_r4.PIPE_BUF4_LAUNCHES) == before
+    assert [sk.LAUNCHES[k] for k in keys] == before
 
 
 def test_main_exits_nonzero_without_cuda(monkeypatch, capsys):

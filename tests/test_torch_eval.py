@@ -100,10 +100,10 @@ def test_eval_kernel_wrapper_refuses_before_launching(monkeypatch, case,
         raise AssertionError("the library was loaded")
 
     monkeypatch.setattr(sk._build, "load_library", no_library)
-    before = sk.EVAL_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_eval"]
     with pytest.raises(ValueError, match=match):
         sk.roundtrip_eval(*_bad(case), 10)
-    assert sk.EVAL_LAUNCHES == before
+    assert sk.LAUNCHES["stegotpu_qim_eval"] == before
 
 
 def test_eval_kernel_bound_is_its_inputs_read_once():

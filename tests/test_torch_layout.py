@@ -121,10 +121,10 @@ def test_unpack_wrapper_refuses_what_the_kernel_cannot_take(monkeypatch,
         raise AssertionError("the library was loaded")
 
     monkeypatch.setattr(sk._build, "load_library", no_library)
-    before = sk.UNPACK_LAUNCHES
+    before = sk.LAUNCHES["stegotpu_qim_unpack_packed"]
     with pytest.raises(ValueError, match=match):
         sk.packed_rows_to_bits(*_bad_packed(case))
-    assert sk.UNPACK_LAUNCHES == before
+    assert sk.LAUNCHES["stegotpu_qim_unpack_packed"] == before
 
 
 @pytest.mark.parametrize("w,num_ac,offset,want", [

@@ -105,8 +105,8 @@ def test_cap_builds_of_k11():
 
 
 def test_src_builds_take_defines():
-    """--src name=DIR:NAME=VALUE:... adds -D flags to a source build (the
-    producer forms of csrc/pipe_bulk); a flag needs a name and a value."""
+    """--src name=DIR:NAME=VALUE:... adds -D flags to a source build; a
+    flag needs a name and a value."""
     assert stripe_cap.variants_of(
         "", "a=/tmp/a,t0=/tmp/b:STEGOTPU_K13_PRODUCER=0:X=y") == [
         ("library", None), ("a", {"src": "/tmp/a"}),
@@ -157,26 +157,6 @@ def test_src_build_falls_back_to_csrc(tmp_path, monkeypatch):
     assert srcs == [tmp_path / "qim_pipe.cu", _build.CSRC / "qim_stripe.cu"]
     assert defines == ("STEGOTPU_K13_PRODUCER=1",)
     assert includes == (_build.CSRC,)
-
-
-def test_bulk_ring_source_has_the_library_interface():
-    """csrc/pipe_bulk/qim_pipe.cu (step (b) of K13: the ring on bulk
-    asynchronous copies and mbarriers, kept as a study source outside the
-    library) has the library K13's C entry point, so stripe_cap --src can
-    build it in its place, and no __syncthreads() in its tile loop."""
-    from stegotpu_torch.ops import _build
-
-    bulk = (_build.CSRC / "pipe_bulk" / "qim_pipe.cu").read_text()
-    lib = (_build.CSRC / "qim_pipe.cu").read_text()
-    entry = lib[lib.index('extern "C" {'):]
-    assert bulk[bulk.index('extern "C" {'):] == entry
-    assert bulk.count("cp.async.bulk.shared::cluster.global.mbarrier") == 1
-    assert "fence.mbarrier_init" in bulk
-    loop = bulk[bulk.index("  for (int s = 0, phase = 0; t.f < b;"):
-                bulk.index("struct PipeArgs")]
-    assert "mbar_wait(&full[s], phase);" in loop
-    assert "__syncthreads" not in loop
-    assert "pipe_bulk" not in str(_build.sources())
 
 
 def test_study_sass_gate_is_keyed_by_ring_depth():

@@ -3,7 +3,9 @@
 On the CPU: with no profiler recording, the hot path makes no
 ``record_function``; under a CPU ``torch.profiler`` the trace holds the
 launch, unpack and eval spans, nested as the code nests them, and no
-host_wait inside the evaluation;
+host_wait inside the evaluation; the launch door counts one launch of
+every entry point in ``stripe_kernel.LAUNCHES`` (a variant under its own
+key) and none that returned an error;
 the file pipelines time decode, seal/unseal, files_open and files_close
 and write the same stego bytes with and without a timer.
 
@@ -26,7 +28,7 @@ import torch
 from stegotpu_torch import crypto, video
 from stegotpu_torch.config import StegoConfig
 from stegotpu_torch.image import save_image_gray
-from stegotpu_torch.ops import qim
+from stegotpu_torch.ops import _build, qim
 from stegotpu_torch.ops import stripe_kernel as sk
 from stegotpu_torch.pipeline import (embed_image_in_video,
                                      extract_image_from_video)
@@ -160,18 +162,51 @@ def test_the_trace_holds_unpack_and_host_wait_inside_eval(tmp_path):
     assert not _within(by["stegotpu_torch.unpack"][0], ev)
 
 
-@pytest.mark.parametrize("entry", ["stegotpu_qim_roundtrip_packed",
-                                   "stegotpu_qim_embed"])
+def _stand_in(monkeypatch, entry: str, rc: int = 0) -> list:
+    """A stand-in kernel library (a CUDA kernel has no CPU mode) whose
+    `entry` records its arguments and returns `rc`; returns the record."""
+    calls = []
+    lib = types.SimpleNamespace(**{
+        entry: lambda *a: calls.append(a) or rc,
+        "stegotpu_cuda_error_string": lambda code: b"stand-in error"})
+    monkeypatch.setattr(sk._build, "load_library", lambda: lib)
+    return calls
+
+
+@pytest.mark.parametrize("entry", sorted(_build.ARGTYPES))
 def test_the_trace_names_each_launch_by_its_entry_point(monkeypatch, tmp_path,
                                                         entry):
-    """_launch, the one path of every K1-K8 launch, with a stand-in for the
-    kernel library (a CUDA kernel has no CPU mode)."""
-    calls = []
-    lib = types.SimpleNamespace(**{entry: lambda *a: calls.append(a) or 0})
-    monkeypatch.setattr(sk._build, "load_library", lambda: lib)
-    spans = _trace(tmp_path, lambda: sk._launch(entry, 1, 2))
+    """launch, the one door of every kernel launch: it calls the entry
+    point, opens the span named for it and counts one launch under its
+    name in LAUNCHES, and nothing else."""
+    calls = _stand_in(monkeypatch, entry)
+    want = sk.LAUNCHES.copy()
+    want[entry] += 1
+    spans = _trace(tmp_path, lambda: sk.launch(entry, 1, 2))
     assert calls == [(1, 2)]
     assert [e["name"] for e in spans] == ["stegotpu_torch.launch." + entry]
+    assert sk.LAUNCHES == want
+
+
+def test_a_launch_that_returns_an_error_raises_and_counts_nothing(
+        monkeypatch):
+    entry = "stegotpu_qim_roundtrip_packed"
+    calls = _stand_in(monkeypatch, entry, rc=700)
+    want = sk.LAUNCHES.copy()
+    with pytest.raises(RuntimeError, match=f"{entry} launch: CUDA error 700 "
+                       r"\(stand-in error\)"):
+        sk.launch(entry, 1, 2)
+    assert calls == [(1, 2)]
+    assert sk.LAUNCHES == want
+
+
+def test_a_variant_is_counted_under_its_entry_point_and_name(monkeypatch):
+    entry = "stegotpu_qim_ablation"
+    _stand_in(monkeypatch, entry)
+    want = sk.LAUNCHES.copy()
+    want[entry + ":io_f4"] += 1
+    sk.launch(entry, 1, 2, variant="io_f4")
+    assert sk.LAUNCHES == want
 
 
 def test_stage_timer_stages_are_spans_in_a_trace(tmp_path):

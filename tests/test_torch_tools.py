@@ -133,7 +133,7 @@ def test_profile_roundtrip_fails_on_a_trace_that_lost_events(
     real = sk.embed_and_extract_frames_packed
 
     def counted(*args, **kwargs):
-        sk.ROUNDTRIP_LAUNCHES += 1
+        sk.LAUNCHES["stegotpu_qim_roundtrip_packed"] += 1
         return real(*args, **kwargs)
 
     @contextlib.contextmanager

@@ -192,11 +192,11 @@ def embed_image_in_video(
     slicing are unchanged because per-frame capacity is static.
     timer: optional object with a ``stage(name)`` context manager (the JAX
     package's utils.profiling.StageTimer shape) collecting decode_wait /
-    device_dispatch / device_readback / encode stage totals, and seal,
-    files_open (reader, writer, decode thread), files_close and decode
-    (timed on the Prefetcher's thread; inline, inside decode_wait, on a
-    single-core host). Extract's stages: decode_wait, decode,
-    device_dispatch, device_readback, files_open, files_close, unseal.
+    device_dispatch / device_readback / encode stage totals (encode: the
+    writes, and with cv2's encoder lanes the wait for them at close), and
+    seal, files_open, files_close, decode (the Prefetcher's thread; in
+    decode_wait on one core) and encode_lane. Extract's stages: decode_wait,
+    decode, device_dispatch, device_readback, files_open, files_close, unseal.
     frame_range / sealed_bits: segment embedding (see _embed_payload) — the
     resume / multi-host building blocks: embed only frames [lo, hi) with
     globally-consistent bit offsets, optionally against a pre-sealed
@@ -234,7 +234,7 @@ def embed_data_in_video(
     rng, timer and device: as for embed_image_in_video (a deterministic
     crypto stage for test builds; the stage timer's seal / files_open /
     decode / decode_wait / device_dispatch / device_readback / encode /
-    files_close totals; the torch device, None for the card).
+    encode_lane / files_close totals; the torch device, None for the card).
     """
     w, h = payload_mod.RAW_DATA_DIMS
     return _embed_payload(video_in, data, w, h, video_out,
@@ -412,8 +412,8 @@ def _embed_payload(
                 # the decode stage is timed on the Prefetcher's thread (on a
                 # single-core host, inline: inside decode_wait)
                 with _stage(timer, "files_open"):
-                    writer = stream.enter_context(VideoWriter(
-                        out_path, reader.info.fps, w8, h8, config.codec))
+                    writer = stream.enter_context(VideoWriter(out_path,
+                        reader.info.fps, w8, h8, config.codec, timer=timer))
                     prefetched = stream.enter_context(Prefetcher.maybe(
                         _timed_iter(reader.batches(batch_frames, mode="both",
                                                    gray_switch=gray_switch),

@@ -19,17 +19,40 @@ survive the encode exactly.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 import queue
+import shutil
+import sys
+import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 
+from stegotpu_torch import avi
 from stegotpu_torch.config import crop_dims
 from stegotpu_torch.native import videoio as native_io
+
+# Frames the cv2 writer encoded: "lane" counts the runs (chunks) that an
+# encoder lane encoded and that were joined into their output, "serial" the
+# frames one cv2.VideoWriter encoded alone. The native writer counts nothing.
+ENCODE_CHUNKS: collections.Counter = collections.Counter()
+
+# cv2's FFV1 writer starts a keyframe every 12 frames, so a run of at most
+# 12 frames encoded by a fresh writer is the serial writer's packets from a
+# keyframe on (tests/test_torch_video_lanes.py pins it)
+KEY_INTERVAL = 12
+# a fresh cv2 writer's first frame costs about two later ones (the card's
+# host, 1080p: 191-208 ms against 99-135), so a write is cut into runs of
+# at least this many frames where it has them
+MIN_RUN = 4
+# a lane's raw frames stay under half a RIFF, so each lane file is one RIFF
+_LANE_RAW_BYTES = 512 << 20
 
 
 def force_avi_path(path: str | Path) -> str:
@@ -246,12 +269,201 @@ class VideoReader:
         self.release()
 
 
+def encoder_lanes() -> int:
+    """Encoder lanes of the cv2 FFV1 writer: one a usable core, less two,
+    one for the thread that feeds them and one for the Prefetcher's decode
+    (the file cells' pace once the encode is spread; 6 lanes on 8 cores
+    were at least as fast as 7 on the card's host), at most 8 (the native
+    writer's cap)."""
+    return min(8, effective_cpu_count() - 2)
+
+
+def lane_chunks(n: int, lanes: int, longest: int,
+                shortest: int = 1) -> list[int]:
+    """Sizes of the contiguous runs that a write of `n` frames is cut into.
+
+    A run is n spread over `lanes`, but at least `shortest` frames and at
+    most `longest`; the runs are as few as that allows, as even as they
+    come, the longer first: 8 frames over 7 lanes are 4 runs of 2, or 2
+    runs of 4 at 4 or more a run; 25 over 4 are 7, 6, 6, 6. The sizes
+    depend on nothing else, so the same writes always give the same file."""
+    if n <= 0:
+        return []
+    size = min(longest, max(shortest, -(-n // lanes)))
+    c = -(-n // size)
+    q, r = divmod(n, c)
+    return [q + 1] * r + [q] * (c - r)
+
+
+def _stage(timer, name: str):
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _shared_stage(timer, name: str, lock: threading.Lock):
+    """``timer.stage(name)`` on threads that share the timer: the timer adds
+    up at the stage's end under `lock`, so no thread's sum is lost."""
+    if timer is None:
+        yield
+        return
+    stage = timer.stage(name)
+    stage.__enter__()
+    try:
+        yield
+    except BaseException:
+        with lock:
+            if not stage.__exit__(*sys.exc_info()):
+                raise
+    else:
+        with lock:
+            stage.__exit__(None, None, None)
+
+
+class _Lanes:
+    """A pool of cv2 FFV1 encoder lanes writing one AVI.
+
+    Each run of frames is encoded by a fresh ``cv2.VideoWriter`` on a lane
+    thread (cv2 releases the interpreter lock while it encodes) into a
+    temporary AVI in a directory beside the output, so every run starts on
+    a keyframe. One joiner thread takes the runs in frame order, copies
+    their packets into the output (``avi.AviJoiner``) and removes each
+    temporary file as soon as its packets are in. At most 2 * lanes runs
+    are queued or encoding; a write past that waits for the oldest.
+    """
+
+    def __init__(self, path: str, fourcc: int, fps: float,
+                 size: tuple[int, int], lanes: int, timer=None):
+        w, h = size
+        self.lanes = lanes
+        self.max_frames = max(1, min(KEY_INTERVAL,
+                                     _LANE_RAW_BYTES // (w * h * 3)))
+        self._args = (fourcc, fps, size)
+        self._timer = timer
+        self._joiner = avi.AviJoiner(path)
+        out = Path(path)
+        self._dir = Path(tempfile.mkdtemp(prefix=f".{out.name}.lanes-",
+                                          dir=out.parent))
+        self._pool = ThreadPoolExecutor(lanes, thread_name_prefix="ffv1-lane")
+        self._slots = threading.Semaphore(2 * lanes)
+        self._order: queue.Queue = queue.Queue()
+        self._n = 0
+        self._timer_lock = threading.Lock()
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(target=self._join_runs, daemon=True)
+        self._thread.start()
+
+    def _encode(self, frames: np.ndarray, gray: bool, path: Path) -> None:
+        import cv2
+
+        fourcc, fps, size = self._args
+        with _shared_stage(self._timer, "encode_lane", self._timer_lock):
+            out = cv2.VideoWriter(str(path), fourcc, fps, size, isColor=True)
+            if not out.isOpened():
+                raise IOError(f"cannot open an FFV1 lane writer for '{path}'")
+            try:
+                for f in frames:
+                    out.write(cv2.cvtColor(np.ascontiguousarray(f),
+                                           cv2.COLOR_GRAY2BGR)
+                              if gray else np.ascontiguousarray(f))
+            finally:
+                out.release()
+
+    def _join_runs(self) -> None:
+        while True:
+            item = self._order.get()
+            if item is None:
+                return
+            fut, path, n = item
+            try:
+                if self.error is None:
+                    fut.result()
+                    with _shared_stage(self._timer, "encode_lane",
+                                       self._timer_lock):
+                        lane = avi.read_lane(path)
+                        if len(lane.packets) != n:
+                            raise IOError(
+                                f"an FFV1 lane wrote {len(lane.packets)} of "
+                                f"{n} frames to '{path}' (disk full or "
+                                "encoder failure?)")
+                        self._joiner.add(lane)
+                    ENCODE_CHUNKS["lane"] += 1
+                else:
+                    fut.cancel()
+            except BaseException as e:  # raised by the next write or release
+                if self.error is None:
+                    self.error = e
+            finally:
+                if not fut.cancelled():
+                    fut.exception()  # the lane is done with its file
+                path.unlink(missing_ok=True)
+                self._slots.release()
+
+    def write(self, frames: np.ndarray, gray: bool) -> None:
+        """Queue `frames` as runs over the lanes (``lane_chunks``, at least
+        ``MIN_RUN`` frames a run); returns once they are queued."""
+        a = 0
+        for size in lane_chunks(len(frames), self.lanes, self.max_frames,
+                                MIN_RUN):
+            self._slots.acquire()
+            if self.error is not None:
+                self._slots.release()
+                raise self.error
+            path = self._dir / f"{self._n:08d}.avi"
+            self._n += 1
+            self._order.put((self._pool.submit(self._encode, frames[a:a + size],
+                                               gray, path), path, size))
+            a += size
+        if self.error is not None:
+            raise self.error
+
+    def close(self) -> None:
+        """Wait for every run, finish the output and remove the temporary
+        directory, on error too; raises the first lane error."""
+        self._order.put(None)
+        try:
+            with _stage(self._timer, "encode"):
+                self._thread.join()
+                self._pool.shutdown()
+            if self.error is not None:
+                raise self.error
+            self._joiner.finish()
+        finally:
+            self._joiner.close()
+            shutil.rmtree(self._dir, ignore_errors=True)
+
+
 class VideoWriter:
     """Lossless stego video writer (FFV1 in .avi by default).
 
     Native FFmpeg backend (frame-parallel encoder-lane pool, batched C
     calls) when available for FFV1, HuffYUV, and raw BGR (RGBA); cv2
     otherwise.
+
+    On cv2, FFV1 is encoded by a pool of ``encoder_lanes()`` lanes (one a
+    usable core of this process, less two, at most 8) when there are two
+    or more: each write is cut into runs of at most 12 frames, spread over
+    the lanes, at least ``MIN_RUN`` frames a run where the write has them
+    (``lane_chunks``: a fresh writer's first frame costs more than the
+    others), each run encoded by a fresh ``cv2.VideoWriter`` on its own
+    thread into a temporary AVI in a directory beside the output
+    (``.<name>.lanes-*``), and the runs' packets are joined in frame order
+    into the one output AVI (``stegotpu_torch.avi``). Every frame decodes
+    as the serial writer's would; only the keyframes differ (each run's
+    first frame is one). The runs depend only on the writes and the lane
+    count, so the same writes give the same file, however the lanes are
+    scheduled. A temporary file is removed as soon as its
+    packets are in the output, the directory at ``release()``, on error
+    too. A write returns once its runs are queued, so the lanes read the
+    frames after it returns: do not modify them until ``release()``. At
+    most twice as many runs as lanes are in flight; a write past that
+    waits. A lane's error is raised by the next write or by ``release()``.
+    With one lane, for HFYU and RGBA, and on the native backend the writer
+    is one encoder as before.
+
+    timer: optional stage timer (``stage(name)``). The lanes time their
+    encode and join under ``encode_lane`` (they overlap, so its total can
+    pass the wall time); ``release()`` times its wait for the lanes under
+    ``encode``, the stage the pipeline times its writes under.
     """
 
     _NATIVE_CODECS = {"FFV1": "ffv1", "HFYU": "huffyuv", "RGBA": "rawvideo"}
@@ -264,11 +476,13 @@ class VideoWriter:
         height: int,
         codec: str = "FFV1",
         backend: str = "auto",
+        timer=None,
     ):
         self.path = force_avi_path(path)
         Path(self.path).parent.mkdir(parents=True, exist_ok=True)
         self._native = None
         self._out = None
+        self._lanes = None
         self._frames_written = 0
         if codec not in self._NATIVE_CODECS and backend == "native":
             # an EXPLICIT native request must not silently fall back (the
@@ -291,29 +505,47 @@ class VideoWriter:
             )
             if not self._out.isOpened():
                 raise IOError(f"cannot open {codec} VideoWriter for '{self.path}'")
+            lanes = encoder_lanes()
+            if codec == "FFV1" and lanes > 1:
+                # the opened writer checked the settings; released with no
+                # frame it leaves the empty AVI that a writer given no frame
+                # leaves, which the lanes' output replaces
+                self._out.release()
+                self._out = None
+                self._lanes = _Lanes(self.path, fourcc, fps, (width, height),
+                                     lanes, timer)
 
     def write_bgr(self, frame: np.ndarray) -> None:
         if self._native is not None:
             self._native.write(frame)
+        elif self._lanes is not None:
+            self._lanes.write(frame[None], gray=False)
         else:
             self._out.write(frame)
+            ENCODE_CHUNKS["serial"] += 1
         self._frames_written += 1
 
     def write_bgr_batch(self, frames: np.ndarray) -> None:
         if self._native is not None:
             self._native.write(frames)
+        elif self._lanes is not None:
+            self._lanes.write(frames, gray=False)
         else:
             for f in frames:
                 self._out.write(np.ascontiguousarray(f))
+            ENCODE_CHUNKS["serial"] += len(frames)
         self._frames_written += len(frames)
 
     def write_gray_batch(self, frames_gray: np.ndarray) -> None:
         """Write gray frames replicated to BGR (reference: embed_process.py:126).
 
         The native backend replicates inside the encoder lanes — the 3x BGR
-        array is never built on the host."""
+        array is never built on the host; so do the cv2 lanes, a frame at
+        a time."""
         if self._native is not None:
             self._native.write_gray(frames_gray)
+        elif self._lanes is not None:
+            self._lanes.write(frames_gray, gray=True)
         else:
             import cv2
 
@@ -321,15 +553,21 @@ class VideoWriter:
                 self._out.write(
                     cv2.cvtColor(np.ascontiguousarray(f), cv2.COLOR_GRAY2BGR)
                 )
+            ENCODE_CHUNKS["serial"] += len(frames_gray)
         self._frames_written += len(frames_gray)
 
     def release(self) -> None:
         if self._native is not None:
             self._native.close()
             self._native = None
+        cv2_path = self._out is not None or self._lanes is not None
         if self._out is not None:
             self._out.release()
             self._out = None
+        if self._lanes is not None:
+            lanes, self._lanes = self._lanes, None
+            lanes.close()
+        if cv2_path:
             # cv2.VideoWriter.write returns no status: a disk-full or dead
             # encoder is invisible per-write (the native backend raises).
             # Fail-closed at close: the container must report the frame

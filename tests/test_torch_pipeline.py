@@ -172,6 +172,46 @@ def test_raw_data_round_trip(multibatch, tmp_path):
     assert out.success and out.is_raw_data and out.data == data
 
 
+@pytest.mark.parametrize("payload", ["image", "data"])
+def test_round_trip_through_the_cv2_encoder_lanes(multibatch, tmp_path,
+                                                  monkeypatch, payload):
+    """The product's embed and extract on the cv2 backend with 4 FFV1
+    encoder lanes (video.VideoWriter): the secret image and the raw bytes
+    come back exactly."""
+    from stegotpu_torch import video
+
+    monkeypatch.setenv("STEGOTPU_VIDEO_BACKEND", "cv2")
+    monkeypatch.setattr(video, "effective_cpu_count", lambda: 6)
+    d, pub = multibatch
+    lanes_before = video.ENCODE_CHUNKS["lane"]
+    data = b"raw bytes through the lanes " * 3
+    if payload == "image":
+        res = embed_image_in_video(d / "cover.avi", d / "secret.png",
+                                   tmp_path / "s.avi", pub, StegoConfig(),
+                                   batch_frames=2, device="cpu")
+    else:
+        res = embed_data_in_video(d / "cover.avi", data, tmp_path / "s.avi",
+                                  pub, StegoConfig(), batch_frames=2,
+                                  device="cpu")
+    assert res.success and res.frames_used == 9
+    assert video.ENCODE_CHUNKS["lane"] > lanes_before
+    assert list(tmp_path.glob(".*.lanes-*")) == []
+    out = extract_image_from_video(tmp_path / "s.avi",
+                                   crypto.load_private_pem(d / "priv.pem"),
+                                   StegoConfig(), batch_frames=2,
+                                   device="cpu")
+    assert out.success and out.hash_ok, out.error
+    if payload == "image":
+        np.testing.assert_array_equal(out.pixels,
+                                      load_image_gray(d / "secret.png"))
+    else:
+        assert out.is_raw_data and out.data == data
+    # frames past the payload are the cover's own (color passthrough)
+    n = out.frames_read
+    np.testing.assert_array_equal(_decode_all(tmp_path / "s.avi")[n:],
+                                  _decode_all(d / "cover.avi")[n:])
+
+
 def test_array_api_matches_jax():
     """embed_payload_into_gray_frames / extract_bits_from_gray_frames: the
     port's round trip returns the payload, and its stego decodes identically

@@ -19,9 +19,17 @@ residual.
 JAX package, not a Pallas kernel). ``embed_frames_verified_fast`` runs the
 CUDA kernel K3 (ops/stripe_kernel.embed_and_check_frames) and takes the
 repair loop only when K3 counted a wrong bit.
+
+The repair loop runs inside the span ``stegotpu_torch.verified.repair``
+and the fast path's wait for K3's count inside ``stegotpu_torch.host_wait``
+(utils/profiling.annotate). ``REPAIRS`` counts on the host, with no device
+read: ``"checked"`` fast-path calls, ``"repaired"`` calls that took the
+repair loop, ``"rounds"`` repair rounds run.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -30,6 +38,9 @@ from stegotpu_torch.config import BLOCK
 from stegotpu_torch.ops import dispatch, stripe_kernel
 from stegotpu_torch.ops.dct import blockify, kron_dct_tensor, unblockify
 from stegotpu_torch.ops.qim import qim_embed_coeffs
+from stegotpu_torch.utils.profiling import annotate
+
+REPAIRS: collections.Counter[str] = collections.Counter()
 
 
 def _require_full_f32_matmul() -> None:
@@ -63,6 +74,13 @@ def embed_frames_verified(
     round (0 in practice except pathological saturated covers).
     """
     _require_full_f32_matmul()
+    with annotate("stegotpu_torch.verified.repair"):
+        return _repair(frames, payload_bits, total_bits, delta, num_ac,
+                       repair_rounds, bit_offset)
+
+
+def _repair(frames, payload_bits, total_bits, delta, num_ac, repair_rounds,
+            bit_offset):
     b, h, w = frames.shape
     dev = frames.device
     nb = (h // BLOCK) * (w // BLOCK)
@@ -108,6 +126,7 @@ def embed_frames_verified(
     # Each pixel carries DC/8 (the orthonormal DC basis value is exactly
     # 1/8), so shifting DC by 8*d moves every pixel of the block by d.
     for _ in range(repair_rounds):
+        REPAIRS["rounds"] += 1
         got = recovered_bits(stego)
         bad_block = (valid & (got != bits_f)).any(dim=-1)  # (B, nb)
         lo = x_float.amin(dim=-1)
@@ -149,14 +168,19 @@ def embed_frames_verified_fast(
     the residual under 'fast' for its bf16 reader; the port's 'fast'
     reader runs the wire arithmetic, so there is nothing to recount.
     """
+    REPAIRS["checked"] += 1
     _, h, w = frames.shape
     if not dispatch._use_stripe_kernel(kernel, h, w):
+        REPAIRS["repaired"] += 1
         return embed_frames_verified(frames, payload_bits, total_bits, delta,
                                      num_ac, repair_rounds=repair_rounds)
     stego, bpf, errors = stripe_kernel.embed_and_check_frames(
         frames, payload_bits, total_bits, delta, num_ac)
-    if int(errors.sum()) == 0:
+    with annotate("stegotpu_torch.host_wait"):
+        clean = int(errors.sum()) == 0
+    if clean:
         return stego, bpf, torch.zeros((), dtype=torch.int32,
                                        device=frames.device)
+    REPAIRS["repaired"] += 1
     return embed_frames_verified(frames, payload_bits, total_bits, delta,
                                  num_ac, repair_rounds=repair_rounds)

@@ -764,6 +764,8 @@ def main() -> int:
         "extract_packed_plain": extract_args(sk.extract_frames_packed_plain),
         "embed_check": embed_args(sk.embed_and_check_frames),
         "embed_check_plain": embed_args(sk.embed_and_check_frames_plain),
+        "embed_repair": embed_args(sk.embed_and_repair_frames),
+        "embed_repair_plain": embed_args(sk.embed_and_repair_frames_plain),
         "roundtrip_packed": embed_args(sk.embed_and_extract_frames_packed),
         "roundtrip_packed_plain":
             embed_args(sk.embed_and_extract_frames_packed_plain),
@@ -806,7 +808,8 @@ def main() -> int:
     from stegotpu_torch.studies import bounds
 
     for k, kn in (("embed", "K1"), ("extract_packed", "K2"),
-                  ("embed_check", "K3"), ("roundtrip_packed", "K4"),
+                  ("embed_check", "K3"), ("embed_repair", "K3 repair"),
+                  ("roundtrip_packed", "K4"),
                   ("extract_rows", "K5"), ("roundtrip_rows", "K6")):
         bound, by = bounds.bound_ms(*bounds.work(k, 8, 1080, 1920, NUM_AC,
                                                  sk.pick_stripe(1080)))
@@ -862,7 +865,9 @@ def main() -> int:
     errs = _fused_vs_plain(dev, rng)                          # phase 6
     launches.update(_identities_and_harness(dev, rng, libs["cv2"]))  # phase 7
     _tf32_sentinel(dev)                                       # phase 8
-    launches.update(_verified_path(dev, rng, files))          # phase 9
+    launches9, errs9 = _verified_path(dev, rng, files, gpu)   # phase 9
+    launches.update(launches9)
+    errs.update(errs9)
     errs10, launches10 = _variants_and_metrics(dev, rng)      # phase 10
     errs.update(errs10)
     launches.update(launches10)
@@ -905,6 +910,7 @@ def main() -> int:
                    for k in WITNESS},
                 "roundtrip_eval": (("stegotpu_torch/csrc/qim_eval.cu", None),
                                    None),
+                "embed_repair": ((stripe[0], None), None),
                 "unpack_packed": (("stegotpu_torch/csrc/qim_unpack.cu", None),
                                   None)}
     errs.update(embed=embed_err, extract_packed=extract_err, **errs4)
@@ -936,7 +942,19 @@ def main() -> int:
                         "XLA ops (stegotpu/ops/pallas_kernel.py:217); "
                         "max_abs_err counts the bytes that differ from the "
                         "plain version"}
-               if k == "unpack_packed" else {})})
+               if k == "unpack_packed" else {}),
+            **({"note": "replaces no TPU kernel: the JAX package repairs "
+                        "in XLA code (stegotpu/ops/verified.py); K3's "
+                        "repair variant; max_abs_err is the largest of its "
+                        "identity counts against K3 and K1, its pixels off "
+                        "its plain version and off the float64 reference "
+                        "where that is certain, and its residual outside "
+                        "the reference's window (phase 9)"}
+               if k == "embed_repair" else {}),
+            **({"note": "on the card only the verified fast path's delta "
+                        "<= 0 branch launches K3 (phase 9); its launches "
+                        "here are that branch's"}
+               if k == "embed_check" else {})})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its path: {launches}")
     from stegotpu_torch.studies import harness
@@ -1274,10 +1292,31 @@ def _letterboxed(rng, b: int, bar: int = 136, h: int = 1080, w: int = 1920):
     return frames
 
 
-def _verified_path(dev, rng, files: bool) -> dict[str, int]:
+def _scope(dev, seed: int, b: int, h: int, w: int):
+    """(B, H, W) u8 letterboxed film covers made on the card, as the
+    uhd2160p24scope cell's (ops/exactness.scope_covers): bars of 280 rows
+    at 4K, 136 (17 block rows) at 1080p; and seeded payload bits at full
+    capacity."""
+    import torch
+
+    from stegotpu_torch.ops import exactness
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = {**exactness.SCOPE, "letterbox_rows": 280 if h == 2160 else 136}
+    frames = exactness.scope_covers((b, h, w), cfg, gen, dev)
+    cap = (h // 8) * (w // 8) * NUM_AC
+    return frames, torch.randint(0, 2, (b, cap), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+
+
+def _verified_path(dev, rng, files: bool,
+                   gpu: str) -> tuple[dict[str, int], dict[str, int]]:
     """Phase 9: the verified embed at full width, array level and (where
-    the host libraries are installed) file to file. Returns K3's launches
-    on that path."""
+    the host libraries are installed) file to file, and the repair variant
+    beside its twins (_repair_variant). Returns the launches of K3 and of
+    its repair variant on the verified path (the calls of the path alone:
+    neither the identities nor the timing count), and the variant's
+    largest count that must be 0."""
     import numpy as np
     import torch
 
@@ -1301,29 +1340,50 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
     t0 = time.perf_counter()
     s_mid, bpf_mid, r_mid = embed_frames_verified_fast(mid, payload, total,
                                                        DELTA, NUM_AC)
-    after_mid = sk.LAUNCHES["stegotpu_qim_embed_check"]
+    after_mid = sk.LAUNCHES["stegotpu_qim_embed_repair"]
     s_box, bpf_box, r_box = embed_frames_verified_fast(boxed, payload, total,
                                                        DELTA, NUM_AC)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"embed_check": sk.LAUNCHES["stegotpu_qim_embed_check"]}
-    check(after_mid == 1 and int(r_mid) == 0
-          and torch.equal(bpf_mid, bpf_box),
-          f"verified fast branch: launches {after_mid}, residual {int(r_mid)}")
+    launches = {"embed_repair": sk.LAUNCHES["stegotpu_qim_embed_repair"],
+                "embed_check": sk.LAUNCHES["stegotpu_qim_embed_check"]}
+    check(after_mid == 1 and launches == {"embed_repair": 2, "embed_check": 0}
+          and int(r_mid) == 0 and torch.equal(bpf_mid, bpf_box),
+          f"verified fast path: launches {dict(sk.LAUNCHES)}, residual "
+          f"{int(r_mid)}")
     check(torch.equal(s_mid, sk.embed_frames(mid, payload, total, DELTA,
                                              NUM_AC)[0]),
-          "verified fast branch: stego is not K3's (== K1's)")
+          "verified fast path, clean cover: stego is not K1's")
     check(torch.equal(sk.extract_frames(s_mid, DELTA, NUM_AC), payload),
-          "verified fast branch: payload not recovered")
+          "verified fast path, clean cover: payload not recovered")
     check(int(r_box) == 0, f"verified repair: residual {int(r_box)}")
-    check(not torch.equal(s_box, plain), "verified repair branch did not run")
+    check(not torch.equal(s_box, plain), "the repair changed nothing")
     check(torch.equal(sk.extract_frames(s_box, DELTA, NUM_AC), payload),
           "verified repair: K2 does not recover the payload")
-    print(f"phase 9 verified 1920x1080 B=8: mid cover fast branch residual 0, "
-          f"stego == K1's, payload exact; letterboxed cover (bars 136 rows): "
-          f"plain K1 embed loses {lost} bits, repair branch residual 0, K2 "
-          f"recovers all {total} bits; stegotpu_qim_embed_check="
-          f"{launches['embed_check']}; {seconds:.3f} s host clock", flush=True)
+    print(f"phase 9 verified 1920x1080 B=8: mid cover residual 0, stego == "
+          f"K1's, payload exact; letterboxed cover (bars 136 rows): plain K1 "
+          f"embed loses {lost} bits, repair residual 0, K2 recovers all "
+          f"{total} bits; stegotpu_qim_embed_repair="
+          f"{launches['embed_repair']}, no K3 launch; {seconds:.3f} s host "
+          "clock", flush=True)
+
+    # delta <= 0 keeps K3, the host's wait and the loop on the card: the
+    # one path left there that launches K3
+    sk.LAUNCHES.clear()
+    _, _, r_zero = embed_frames_verified_fast(mid, payload, total, 0.0,
+                                              NUM_AC)
+    k3 = sk.LAUNCHES["stegotpu_qim_embed_check"]
+    check(k3 == 1 and sk.LAUNCHES["stegotpu_qim_embed_repair"] == 0,
+          f"verified fast path at delta 0: launches {dict(sk.LAUNCHES)}")
+    launches["embed_check"] += k3
+    print(f"phase 9 verified 1920x1080 B=8 delta 0: K3 then the loop "
+          f"(stegotpu_qim_embed_check={k3}, no repair variant), residual "
+          f"{int(r_zero)}", flush=True)
+
+    counts = sk.LAUNCHES.copy()
+    worst = _repair_variant(dev, gpu, (mid, boxed), payload, total)
+    sk.LAUNCHES.clear()  # the identities and the timing are not a path's run
+    sk.LAUNCHES.update(counts)
     if files:
         from stegotpu_torch.config import StegoConfig
 
@@ -1331,13 +1391,144 @@ def _verified_path(dev, rng, files: bool) -> dict[str, int]:
             dev, rng, "phase 9 verified file-to-file 1080p letterboxed",
             [np.repeat(_letterboxed(rng, 6)[..., None], 3, axis=-1)],
             (240, 320),
-            StegoConfig(verified_embed=True))["stegotpu_qim_embed_check"]
-        check(n > 0, "the verified file embed did not launch K3")
-        launches["embed_check"] += n
+            StegoConfig(verified_embed=True))["stegotpu_qim_embed_repair"]
+        check(n > 0, "the verified file embed did not launch the repair "
+              "variant")
+        launches["embed_repair"] += n
     else:
         print("phase 9 verified file-to-file: skipped (host libraries)",
               flush=True)
-    return launches
+    return launches, {"embed_repair": worst}
+
+
+def _repair_variant(dev, gpu: str, covers, payload, total: int) -> int:
+    """Phase 9, the repair variant beside its twins: its identities with
+    K3 and K1 (zero tolerance) at 1080p B=8 on `covers` and scope covers;
+    on scope covers at 1080p B=8 and at the cell's 4K B=128, its stego and
+    residual against its plain version and the float64 reference
+    (stegobench/reference_verified.py) where the reference is certain;
+    its queued time beside K3's, and its device counts. Returns the
+    largest of the counts that must be 0: identities, pixels off the
+    plain version or the reference where that is certain, residuals
+    outside the reference's window or off K2's reading."""
+    import torch
+
+    from stegobench import reference_verified
+    from stegotpu_torch.ops import exactness
+    from stegotpu_torch.ops import stripe_kernel as sk
+    from stegotpu_torch.ops.verified import VARIANT_COUNTS, repair_counts
+
+    b, h, w = 8, 1080, 1920
+    cap = (h // 8) * (w // 8) * NUM_AC
+    worst = 0
+    for label, frames in zip(("mid", "letterboxed", "scope"),
+                             (*covers, _scope(dev, 9, b, h, w)[0])):
+        for rounds in (0, 3):
+            for part in (total, total - 13 - cap // 2):
+                row = exactness.repair_identities(frames, payload, part,
+                                                  DELTA, NUM_AC, rounds)
+                worst = max(worst, *(row[k] for k in exactness.REPAIR_KEYS))
+                check(all(row[k] == 0 for k in exactness.REPAIR_KEYS),
+                      f"repair identities, {label} cover: {row}")
+        print(f"phase 9 repair identities 1920x1080 B=8 {label} cover, "
+              "rounds 0 and 3, full and short payloads: "
+              + " ".join(f"{k}={row[k]}" for k in exactness.REPAIR_KEYS)
+              + f"; blocks read wrong {row['blocks_read_wrong']}, residual "
+              f"{row['residual']}", flush=True)
+
+    # against the plain version and the reference, on the same card tensors
+    for b, h, w in ((8, 1080, 1920), (128, 2160, 3840)):
+        cap = (h // 8) * (w // 8) * NUM_AC
+        frames, bits = _scope(dev, 91 + b, b, h, w)
+        full = b * cap
+        s_k, bpf_k, r_k = sk.embed_and_repair_frames(frames, bits, full,
+                                                     DELTA, NUM_AC, 3)
+        s_p, bpf_p, r_p = sk.embed_and_repair_frames_plain(
+            frames, bits, full, DELTA, NUM_AC, 3)
+        r_k, r_p = int(r_k), int(r_p)
+        read = int((sk.extract_frames(s_k, DELTA, NUM_AC) != bits).sum())
+        off_ref = off_plain = least = most = sure = 0
+        for f in range(0, b, 8):
+            part = slice(f, f + 8)
+            ref = reference_verified.embed_verified(
+                frames[part], bits[part], frames[part].shape[0] * cap, DELTA,
+                NUM_AC, 3)
+            off_ref += int(((s_k[part] != ref.stego) & ref.sure).sum())
+            off_plain += int(((s_k[part] != s_p[part]) & ref.sure).sum())
+            least += ref.residual
+            most += ref.residual + ref.unsure
+            sure += int(ref.sure.sum())
+            del ref
+        window = sum(max(0, least - r, r - most) for r in (r_k, r_p))
+        errs = (off_ref, off_plain, window, abs(read - r_k),
+                int((bpf_k != bpf_p).sum()))
+        worst = max(worst, *errs)
+        check(not any(errs),
+              f"repair variant vs its plain version and the reference at "
+              f"{w}x{h} B={b}: pixels off the reference {off_ref}, off the "
+              f"plain version {off_plain} where the reference is certain; "
+              f"residual {r_k}, plain {r_p}, reference [{least}, {most}], "
+              f"K2 reads {read} wrong; bpf off {errs[-1]}")
+        print(f"phase 9 repair variant {w}x{h} B={b} scope covers, rounds 3, "
+              f"against its plain version and the float64 reference on the "
+              f"same card tensors: where the reference is certain "
+              f"({sure / frames.numel():.4%} of the pixels) 0 pixels off "
+              f"either ({int((s_k != s_p).sum())} differ from the plain "
+              f"version in all, {int((s_k != frames).sum())} from the "
+              f"cover); residual {r_k}, plain {r_p}, reference window "
+              f"[{least}, {most}], K2 reads {read} wrong; bpf identical",
+              flush=True)
+        del frames, bits, s_k, s_p
+        torch.cuda.empty_cache()
+
+    # queued time beside K3's, and the device counts of the timed calls
+    for h, w, b, n in ((1080, 1920, 8, 14), (2160, 3840, 128, 2)):
+        cap = (h // 8) * (w // 8) * NUM_AC
+        for label in ("scope", "mid"):
+            sets = []
+            for i in range(n):
+                frames, bits = _scope(dev, 100 + i, b, h, w)
+                if label == "mid":
+                    frames = torch.randint(16, 240, (b, h, w), device=dev,
+                                           dtype=torch.uint8)
+                sets.append((frames, bits, b * cap))
+            s3, _, err3 = sk.embed_and_check_frames(*sets[0], DELTA, NUM_AC)
+            bad = (sk.extract_frames(s3, DELTA, NUM_AC)
+                   != sets[0][1]).reshape(b, h // 8, w // 8, NUM_AC).any(-1)
+            bw = w // 8
+            lanes = torch.zeros((b, h // 8, -(-bw // 128) * 128),
+                                dtype=torch.bool, device=dev)
+            lanes[..., :bw] = bad
+            live = torch.zeros_like(lanes)
+            live[..., :bw] = True
+            warps = lanes.reshape(b, h // 8, -1, 32).any(-1)
+            live = live.reshape(b, h // 8, -1, 32).any(-1)
+            warp_share = float((warps & live).sum() / live.sum())
+            # the kernel deals a CTA's wrong blocks out to its first
+            # threads: the warps that take a repair round
+            todo = lanes.reshape(b, h // 8, -1, 128).sum(-1)
+            dealt = float((todo + 31).div(32, rounding_mode="floor").sum()
+                          / live.sum())
+            before = [repair_counts(dev)[k] for k in VARIANT_COUNTS]
+            k3 = _queued_ms([lambda s=s: sk.embed_and_check_frames(
+                *s, DELTA, NUM_AC) for s in sets], f"k3 {label} {h}p")
+            k3r = _queued_ms([lambda s=s: sk.embed_and_repair_frames(
+                *s, DELTA, NUM_AC, 3) for s in sets], f"repair {label} {h}p")
+            got = [repair_counts(dev)[k] - v
+                   for k, v in zip(VARIANT_COUNTS, before)]
+            print(f"phase 9 repair variant {w}x{h} B={b} {label} covers "
+                  f"({gpu}; queued, {n} input sets): {k3r:.4f} ms, K3 "
+                  f"{k3:.4f} ms ({k3r / k3:.2f}x); blocks read wrong after "
+                  f"the embed {float(bad.float().mean()):.4%}, warps with "
+                  f"one {warp_share:.4%}, warps that take a repair round "
+                  f"{dealt:.4%}; device counts over the timed calls: "
+                  + " ".join(f"{k} {v}" for k, v in zip(VARIANT_COUNTS, got)),
+                  flush=True)
+            del sets, s3, err3, bad
+            torch.cuda.empty_cache()
+    print("phase 9 repair counts on the card (the kernel's and its plain "
+          f"version's, this process): {repair_counts(dev)}", flush=True)
+    return worst
 
 
 def _variants_and_metrics(dev, rng) -> tuple[dict[str, int], dict[str, int]]:
@@ -2750,7 +2941,7 @@ def _serving(gpu: str, h: int = 1080, w: int = 1920) -> None:
                   f"/steganalyze: {stz}")
             ver = post("/embed", {**embed, "output": str(tmp / "vst"),
                                   "verified": True},
-                       counter="stegotpu_qim_embed_check")
+                       counter="stegotpu_qim_embed_repair")
             check(ver["success"] and ver["residual_bits"] == 0,
                   f"verified /embed: {ver}")
             vext = post("/extract", {"stego": str(tmp / "vst.avi"),

@@ -183,6 +183,20 @@ def _report_timer(timer) -> None:
         print(timer.report(), file=sys.stderr)
 
 
+def _report_repairs(args, timer, device) -> None:
+    """With --timing and --verified: what the verified embed counted
+    (ops/verified.repair_counts: the host's counts, and the repair
+    variant's on the device, read from it)."""
+    if timer is None or not getattr(args, "verified", False):
+        return
+    from stegotpu_torch.device import resolve_device
+    from stegotpu_torch.ops.verified import repair_counts
+
+    counts = repair_counts(resolve_device(device))
+    print("verified repair: " + " ".join(f"{k}={v}" for k, v in counts.items()),
+          file=sys.stderr)
+
+
 def _public_key(path) -> bytes:
     from stegotpu_torch import crypto
 
@@ -309,6 +323,8 @@ def cmd_embed(args) -> int:
             mesh=mesh, frame_range=frame_range, sealed_bits=sealed,
             device=device,
         )
+        if mesh is None:
+            _report_repairs(args, timer, device)
     _report_timer(timer)
     if not res.success:
         if res.residual_bits:

@@ -205,14 +205,43 @@ struct HeldBits {
   __device__ __forceinline__ uint32_t operator()(int j) const { return v[j]; }
 };
 
+// The verified repair's hook into embed_block (Shift): NoShift, which
+// every kernel but the repair takes, adds nothing, so `if constexpr`
+// leaves their code as it was. DcRange keeps the least and greatest pixel
+// before the clip, which the repair rule reads; DcShift first adds the
+// block's cumulative pixel shift to each pixel (a DC shift of 8 * px: the
+// DC basis is 1/8 on every pixel).
+struct NoShift {
+  static constexpr bool kOn = false;
+};
+struct DcRange {
+  static constexpr bool kOn = true;
+  float lo, hi;  // the least and greatest pixel before the clip
+  __device__ __forceinline__ void reset() {
+    lo = __int_as_float(0x7f800000);   // +inf
+    hi = __int_as_float(0xff800000);   // -inf
+  }
+  __device__ __forceinline__ float add(float z) {
+    lo = fminf(lo, z);
+    hi = fmaxf(hi, z);
+    return z;
+  }
+};
+struct DcShift : DcRange {
+  float px = 0.0f;  // the cumulative shift of every pixel
+  __device__ __forceinline__ float add(float z) { return DcRange::add(__fadd_rn(z, px)); }
+};
+
 // The QIM embed of one block (_embed_core): the cover's 8 rows of u8 in
 // raw become the stego's. bit gives the block's num_ac payload bits; rem
 // is the number of payload bits left at the block's first slot. The
 // caller passes through blocks with rem <= 0, and every block when
-// delta <= 0, without calling this.
-template <int RN, class Arith, class Mat, class Bits>
+// delta <= 0, without calling this. shift: the repair's DcRange or DcShift,
+// or none.
+template <int RN, class Arith, class Mat, class Bits, class Shift = NoShift>
 __device__ __forceinline__ void embed_block(uint2 (&raw)[8], Mat m, const Bits& bit,
-                                            long long rem, int num_ac, float delta) {
+                                            long long rem, int num_ac, float delta,
+                                            Shift* shift = nullptr) {
   float x[8][8];
   unpack_rows<Arith>(raw, x);
   float y[RN][8];
@@ -274,7 +303,9 @@ __device__ __forceinline__ void embed_block(uint2 (&raw)[8], Mat m, const Bits& 
       for (int g = 0; g < RN; ++g) acc = fmaf(m[g * 8 + r], u[g][c], acc);
       const float px =
           Arith::kRederive ? pixel_again(c < 4 ? raw[r].x : raw[r].y, c) : x[r][c];
-      const float o = fminf(fmaxf(__fadd_rn(px, acc), 0.0f), 255.0f);
+      float z = __fadd_rn(px, acc);
+      if constexpr (Shift::kOn) z = shift->add(z);
+      const float o = fminf(fmaxf(z, 0.0f), 255.0f);
       if constexpr (Arith::kAddConvert)  // 2^23 + floor(o): the byte is the low one
         out[c] = __float_as_uint(__fadd_rz(o, kTwo23));
       else

@@ -84,6 +84,9 @@ namespace {
 #ifndef STEGOTPU_K1_MINB
 #define STEGOTPU_K1_MINB 8
 #endif
+// K3's cap holds for its repair variant too: at 4K B=128 on scope covers
+// 6 CTAs (80 registers, no spill) take 8% more time than 8 (64
+// registers, 48 B spilled).
 #ifndef STEGOTPU_K3_MINB
 #define STEGOTPU_K3_MINB 8
 #endif
@@ -295,6 +298,172 @@ qim_embed_check_kernel(const uint8_t* __restrict__ frames,
   if ((threadIdx.x & 31) == 0 && count != 0) atomicAdd(errors + f, count);
 }
 
+// The valid slots of a block that the quantized stego in raw reads wrong:
+// K3's count.
+template <int RN, class Arith, class Mat, class Bits>
+__device__ __forceinline__ int wrong_slots(const uint2 (&raw)[8], Mat m, float delta,
+                                           const Bits& bits, long long rem, int num_ac) {
+  uint32_t byte[RN];
+  slot_bits<RN, Arith>(raw, m, delta, byte);
+  int count = 0;
+#pragma unroll
+  for (int g = 0; g < RN; ++g)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int c = g * 8 + v;
+      if (c >= 1 && c <= num_ac && c - 1 < rem) count += ((byte[g] >> v) & 1u) != bits(c - 1);
+    }
+  return count;
+}
+
+// The repair rule of the plain loop (ops/verified._repair) in pixels: lift
+// the block out of the floor but never past the ceiling, or the reverse.
+// lo, hi: its least and greatest pixel before the clip.
+__device__ __forceinline__ float shift_rule(float lo, float hi) {
+  const float up = fminf(fmaxf(-lo, 0.0f), fmaxf(__fsub_rn(255.0f, hi), 0.0f));
+  const float down = -fminf(fmaxf(__fsub_rn(hi, 255.0f), 0.0f), fmaxf(lo, 0.0f));
+  return lo < 0.0f ? up : down;
+}
+
+// The rounds of one block that reads wrong, from its first shift: derive
+// the block again from the cover's rows (the same embed, the cumulative
+// shift added to every pixel before the clip and the truncation), read it
+// again, and while a valid slot reads wrong and rounds remain, add the
+// rule's shift once more. A block that reads right stops: nothing of it
+// would change in a later round. raw: the last round's stego; ran: the
+// rounds run; returns the valid slots still wrong.
+template <int RN, class A, class Mat, class Bits>
+__device__ __forceinline__ int repair_rounds(uint2 (&raw)[8], const uint8_t* __restrict__ cover,
+                                             int w, Mat m, const Bits& bits, long long rem,
+                                             int num_ac, float delta, int rounds, float px,
+                                             int& ran) {
+  DcShift shift;
+  shift.px = px;
+  for (ran = 1;; ++ran) {
+    load_rows(cover, w, raw);
+    shift.reset();
+    embed_block<RN, A>(raw, m, bits, rem, num_ac, delta, &shift);
+    const int wrong = wrong_slots<RN, A>(raw, m, delta, bits, rem, num_ac);
+    if (wrong == 0 || ran == rounds) return wrong;
+    shift.px = __fadd_rn(shift.px, shift_rule(shift.lo, shift.hi));
+  }
+}
+
+// K3's repair variant: the verified embed (ops/verified.py) as one kernel.
+// Each thread first owns one block, as in K3: it embeds (K1's arithmetic,
+// the difference form), keeps the least and greatest pixel before the clip,
+// re-extracts the truncated stego in registers and compares the valid
+// slots with the payload bits it holds (HeldBits). A block that reads
+// right is stored. A block that reads wrong, while rounds remain, takes
+// the repair rule of the plain loop on its own pixels (repair_rounds): no
+// value crosses blocks, so no block waits for another and only the final
+// rows go to memory. With repair_rounds 0 nothing is repaired, and the
+// stego and the count are K3's. Blocks with rem <= 0 pass through; with
+// delta <= 0 the block passes through and is counted, as in K3.
+//
+// The blocks that read wrong are dealt out again before their rounds: the
+// CTA lists them in order in shared memory, with their first shift, and
+// its first threads take one each, so that a CTA whose blocks mostly read
+// right repairs in one warp, not in all of them (were each thread to
+// repair its own block, a warp would take as many passes as its worst
+// block, and 99.9% of the warps of a scope batch hold one: 22% slower at
+// 4K B=128).
+//
+// residual: an int32 scalar, zeroed by the entry point on the launch
+// stream: the valid slots still wrong after the last round. counts:
+// 3 int64 that only grow, a warp's counts added once: the blocks that read wrong
+// after the embed, the repair rounds run summed over blocks, the residual
+// slots. Bound on the H100: K3's bytes; each round a block takes adds an
+// embed and a read of that block in registers, and a read of its cover's
+// rows and payload bytes (in L2).
+template <int RN, class Arith, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+qim_embed_repair_kernel(const uint8_t* __restrict__ frames,
+                        const uint8_t* __restrict__ payload,
+                        uint8_t* __restrict__ stego, int* __restrict__ bpf,
+                        int* __restrict__ residual,
+                        unsigned long long* __restrict__ counts, int h, int w,
+                        int num_ac, long long cap, long long total_bits,
+                        float delta, int rounds) {
+  using A = RederiveIfCapped<Arith, (MINB > 1)>;
+  const ConstDct m{};
+  const int f = blockIdx.z;
+  frame_bits(bpf, f, total_bits - f * cap, cap);  // no bit offset
+
+  const int bw = w / 8;
+  const int by = blockIdx.y;
+  const int x0 = blockIdx.x * blockDim.x;
+  int wrong = 0, bad = 0, ran = 0;
+  bool repair = false;
+  float px = 0.0f;  // a block that reads wrong: its first shift
+  if (x0 + threadIdx.x < bw) {  // no early return: every thread meets the barriers
+    const int bx = x0 + threadIdx.x;
+    const long long blk = static_cast<long long>(by) * bw + bx;
+    const long long rem = total_bits - f * cap - blk * num_ac;
+    const size_t off = block_offset(f, by, bx, h, w);
+
+    uint2 raw[8];
+    load_rows(frames + off, w, raw);
+    if (rem > 0) {  // blocks never entered pass through and hold no valid slot
+      HeldBits<RN> bits;
+      bits.load(payload + f * cap + blk * num_ac, num_ac);
+      DcRange range;  // no shift: K3's stego, and the block's range
+      range.reset();
+      if (delta > 0.0f) embed_block<RN, A>(raw, m, bits, rem, num_ac, delta, &range);
+      wrong = wrong_slots<RN, A>(raw, m, delta, bits, rem, num_ac);
+      bad = wrong != 0;
+      repair = bad && rounds > 0 && delta > 0.0f;
+      if (repair) px = shift_rule(range.lo, range.hi);
+    }
+    if (!repair) store_rows(stego + off, w, raw);
+  }
+  // deal the blocks that read wrong out again, in order: thread i of the
+  // CTA takes the i-th of them (a CTA whose blocks all read right is done)
+  __shared__ int warp_todo[kThreads / 32];
+  __shared__ unsigned char who[kThreads];
+  __shared__ float first[kThreads];
+  if (__syncthreads_or(repair)) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+    const unsigned mask = __ballot_sync(0xFFFFFFFFu, repair);
+    if (lane == 0) warp_todo[warp] = __popc(mask);
+    __syncthreads();
+    int todo = 0, at = 0;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      at += i < warp ? warp_todo[i] : 0;
+      todo += warp_todo[i];
+    }
+    if (repair) {
+      at += __popc(mask & ((1u << lane) - 1u));
+      who[at] = static_cast<unsigned char>(threadIdx.x);
+      first[at] = px;
+      wrong = 0;  // the thread that takes the block counts it
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < todo) {
+      const int bx = x0 + who[threadIdx.x];
+      const long long blk = static_cast<long long>(by) * bw + bx;
+      const long long rem = total_bits - f * cap - blk * num_ac;
+      const size_t off = block_offset(f, by, bx, h, w);
+      HeldBits<RN> bits;
+      bits.load(payload + f * cap + blk * num_ac, num_ac);
+      uint2 raw[8];
+      wrong += repair_rounds<RN, A>(raw, frames + off, w, m, bits, rem, num_ac, delta, rounds,
+                                    first[threadIdx.x], ran);
+      store_rows(stego + off, w, raw);
+    }
+  }
+  wrong = __reduce_add_sync(0xFFFFFFFFu, wrong);
+  bad = __reduce_add_sync(0xFFFFFFFFu, bad);
+  ran = __reduce_add_sync(0xFFFFFFFFu, ran);
+  if ((threadIdx.x & 31) == 0) {
+    if (wrong != 0) atomicAdd(residual, wrong);
+    if (bad != 0) atomicAdd(counts, static_cast<unsigned long long>(bad));
+    if (ran != 0) atomicAdd(counts + 1, static_cast<unsigned long long>(ran));
+    if (wrong != 0) atomicAdd(counts + 2, static_cast<unsigned long long>(wrong));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -456,6 +625,40 @@ int stegotpu_qim_embed_check(const void* frames, const void* payload,
                                        capped_minb(RN, STEGOTPU_K3_MINB)>)
   STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_CHECK)
 #undef STEGOTPU_CHECK
+  return static_cast<int>(cudaGetLastError());
+}
+
+// frames, stego: (B, H, W) u8; payload: (B, cap) u8; bpf as for
+// stegotpu_qim_embed; residual: an int32 scalar, zeroed here on `stream`
+// before the launch; counts: 3 int64, added to and never zeroed
+// here; rounds >= 0. Global bit 0 is the payload's first bit.
+int stegotpu_qim_embed_repair(const void* frames, const void* payload,
+                              void* stego, void* bpf, void* residual,
+                              void* counts, int device, int b, int h, int w,
+                              int num_ac, long long total_bits, float delta,
+                              int rounds, void* stream) {
+  cudaError_t err = begin(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rounds < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long cap = static_cast<long long>(h / 8) * (w / 8) * num_ac;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(residual, 0, sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto launch = [&](auto kernel) {
+    kernel<<<grid_of(b, h, w), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(frames), static_cast<const uint8_t*>(payload),
+        static_cast<uint8_t*>(stego), static_cast<int*>(bpf),
+        static_cast<int*>(residual), static_cast<unsigned long long*>(counts),
+        h, w, num_ac, cap, total_bits, delta, rounds);
+  };
+  const bool fast = delta >= kAddRoundMinDelta;
+#define STEGOTPU_REPAIR(RN)                                               \
+  launch(fast ? qim_embed_repair_kernel<RN, ArithHopper,                 \
+                                        capped_minb(RN, STEGOTPU_K3_MINB)> \
+              : qim_embed_repair_kernel<RN, ArithHopperSmallDelta,       \
+                                        capped_minb(RN, STEGOTPU_K3_MINB)>)
+  STEGOTPU_RN_SWITCH(num_ac / 8 + 1, STEGOTPU_REPAIR)
+#undef STEGOTPU_REPAIR
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -141,6 +141,8 @@ ARGTYPES = {
                                     _i64, _i, _i, _f, _p],
     "stegotpu_qim_embed_check": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i64,
                                  _f, _p],
+    "stegotpu_qim_embed_repair": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                                  _i64, _f, _i, _p],
     "stegotpu_kron_embed": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i64, _i64,
                             _f, _p],
     "stegotpu_kron_extract": [_p, _p, _p, _i, _i, _i, _i, _i, _f, _p],

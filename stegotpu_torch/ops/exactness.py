@@ -26,6 +26,10 @@ Policy (what "exact" means between two f32 implementations):
 - the verified embed's check kernel (K3) must emit stego byte-identical
   to the plain embed kernel's (K1) and an error count EQUAL to K2's count
   over valid slots of K3's stego: zero tolerance.
+- the verified embed's repair variant (``repair_identities``, a row of
+  its own, REPAIR_KEYS): at repair_rounds 0 its stego is K3's and its
+  residual K3's count, and at any rounds every block that K3's stego
+  reads right keeps K1's bytes: zero tolerance.
 - on ROBUST parameter pairs (8 <= delta <= 30, num_ac <= 30) both the
   kernels and the oracle must recover the payload within BER 1e-5 on
   uniform-random covers; larger deltas lose bits to clipping in the
@@ -222,6 +226,90 @@ def check_config(b: int, h: int, w: int, num_ac: int, deltas, rng,
         if verbose:
             print(json.dumps(rows[-1]), flush=True)
     return rows
+
+
+# letterboxed film, the covers on which the verified embed repairs (those
+# of stegobench/configs/uhd2160p24scope.json at 4K): bars of
+# letterbox_rows at letterbox_luma above and below; in the picture 10% of
+# the 8x8 blocks flat at 255, 10% flat at 0, the rest textured mid-tones
+SCOPE = {"letterbox_rows": 280, "letterbox_luma": 0, "texture": 20,
+         "midtone_range": [24, 231], "highlight_share": 0.1,
+         "shadow_share": 0.1}
+
+
+def scope_covers(shape: tuple[int, ...], cfg: dict,
+                 gen: torch.Generator, device) -> torch.Tensor:
+    """(..., H, W) uint8 letterboxed covers from `gen` (cfg as SCOPE):
+    rows [0, bars) and [H - bars, H) at the bar luma; in the picture
+    between, each 8x8 block flat at 255 with probability highlight_share,
+    flat at 0 with shadow_share, else a block base drawn in midtone_range
+    narrowed by the texture on each side, plus uniform per-pixel texture
+    in +-texture. The same draws as the benchmark's verified-device
+    cell makes its covers with (scope_covers of its device_verified
+    module, under stegobench/)."""
+    *lead, h, w = shape
+    bars = cfg["letterbox_rows"]
+    tex = cfg["texture"]
+    lo, hi = cfg["midtone_range"]
+    ph = h - 2 * bars
+    out = torch.full(shape, cfg["letterbox_luma"], dtype=torch.uint8,
+                     device=device)
+    bshape = (*lead, ph // 8, w // 8)
+    kind = torch.rand(bshape, generator=gen, device=device)
+    base = torch.randint(lo + tex, hi - tex + 1, bshape, generator=gen,
+                         device=device, dtype=torch.int16)
+    base = base.repeat_interleave(8, -2).repeat_interleave(8, -1)
+    pic = base + torch.randint(-tex, tex + 1, (*lead, ph, w), generator=gen,
+                               device=device, dtype=torch.int16)
+    del base
+    kind = kind.repeat_interleave(8, -2).repeat_interleave(8, -1)
+    high = cfg["highlight_share"]
+    pic = torch.where(kind < high, 255, pic)
+    pic = torch.where((kind >= high) & (kind < high + cfg["shadow_share"]),
+                      0, pic)
+    out[..., bars:h - bars, :] = pic.to(torch.uint8)
+    return out
+
+
+# K3's repair variant (stripe_kernel.embed_and_repair_frames) against K3
+# and K1, zero tolerance on any content: a row of its own, so that the
+# sweep's rows keep the JAX package's keys
+REPAIR_KEYS = [
+    # at repair_rounds 0: K3's stego, and a residual equal to K3's count
+    "repair_rounds0_stego_mismatch",
+    "repair_rounds0_residual_delta",
+    # at `rounds`: the bits per frame, and every block that K3's stego
+    # reads right keeps K1's bytes (all of them on a clean cover)
+    "repair_bpf_mismatch",
+    "repair_right_blocks_mismatch",
+]
+
+
+def repair_identities(frames: torch.Tensor, payload: torch.Tensor,
+                      total: int, delta: float, num_ac: int,
+                      rounds: int = 3) -> dict:
+    """The REPAIR_KEYS of the repair variant on these inputs (no bit
+    offset), each a count that must be 0, with the residual and the blocks
+    K3's stego reads wrong; on the inputs' device."""
+    b, h, w = frames.shape
+    s1, bpf1 = sk.embed_frames(frames, payload, total, delta, num_ac)
+    s3, _, err3 = sk.embed_and_check_frames(frames, payload, total, delta,
+                                            num_ac)
+    s0, _, r0 = sk.embed_and_repair_frames(frames, payload, total, delta,
+                                           num_ac, 0)
+    s, bpf, residual = sk.embed_and_repair_frames(frames, payload, total,
+                                                  delta, num_ac, rounds)
+    valid = (torch.arange(b * payload.shape[1], device=frames.device)
+             .reshape(payload.shape) < total)
+    wrong = (sk.extract_frames(s3, delta, num_ac) != payload) & valid
+    bad = wrong.reshape(b, h // 8, w // 8, num_ac).any(-1)     # (b, bh, bw)
+    right_px = ~bad.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    out = [(s0 != s3).sum(), (r0 - err3.sum()).abs(), (bpf != bpf1).sum(),
+           ((s != s1) & right_px).sum(), residual, bad.sum()]
+    vals = [int(v) for v in torch.stack(
+        [v.to(torch.int64) for v in out]).tolist()]
+    return {**dict(zip(REPAIR_KEYS, vals)), "rounds": rounds,
+            "residual": vals[4], "blocks_read_wrong": vals[5]}
 
 
 def row_ok(row: dict) -> bool:

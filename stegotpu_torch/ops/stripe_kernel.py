@@ -20,6 +20,14 @@ bound by ops/_build.py) with its plain PyTorch version beside it:
   (pallas_kernel.py:785), the unpacked fused round trip; plain version
   ``embed_and_extract_frames_rows_plain``.
 
+Beside K3, ``embed_and_repair_frames`` runs its repair variant (the same
+kernel source, csrc/qim_stripe.cu ``qim_embed_repair_kernel``): the
+verified embed's DC-shift repair of every block that reads back wrong, in
+registers, a block at a time; it replaces no TPU kernel (the JAX package
+repairs in XLA code, stegotpu/ops/verified.py). Plain version
+``embed_and_repair_frames_plain``; its counts only grow, in
+``repair_counter(device)``.
+
 A wrapper runs the plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is
 no fallback. All six take the Hopper spelling of the shared block
@@ -389,6 +397,89 @@ def embed_and_check_frames_plain(
     return stego, bpf, count_wrong_bits(got, payload_bits, total_bits)
 
 
+# the repair counts of each device: 3 int64, the blocks that read back
+# wrong after the embed, the repair rounds run summed over blocks, the
+# valid slots still wrong after the last round
+_REPAIR_COUNTS: dict[torch.device, torch.Tensor] = {}
+
+
+def repair_counter(device: torch.device) -> torch.Tensor:
+    """The repair counts of `device` (see _REPAIR_COUNTS), made zero at
+    first use; embed_and_repair_frames and its plain version add to them
+    without reading them."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _REPAIR_COUNTS:
+        _REPAIR_COUNTS[device] = torch.zeros(3, dtype=torch.int64,
+                                             device=device)
+    return _REPAIR_COUNTS[device]
+
+
+def shift_rule(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The verified embed's repair rule in pixels (ops/verified._repair,
+    csrc/qim_stripe.cu ``shift_rule``): lift a block whose least and
+    greatest pixel before the clip are lo and hi out of the floor, but
+    never past the ceiling, or the reverse."""
+    up = torch.minimum((-lo).clamp(min=0.0), (255.0 - hi).clamp(min=0.0))
+    down = -torch.minimum((hi - 255.0).clamp(min=0.0), lo.clamp(min=0.0))
+    return torch.where(lo < 0.0, up, down)
+
+
+def embed_and_repair_frames_plain(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int, repair_rounds: int = 3
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3's repair variant, same arguments and
+    results: K1's plain embed (the difference form) and K3's count, then,
+    for each block that reads back wrong and while rounds remain, the
+    repair rule on the block's pixels before the clip (its cumulative
+    shift added to them), the block truncated and read again; only the
+    blocks still wrong go round again. delta <= 0 embeds and repairs
+    nothing (K3's count). Adds to repair_counter(frames.device)."""
+    b, h, w = frames.shape
+    nb = (h // BLOCK) * (w // BLOCK)
+    cap = nb * num_ac
+    delta = float(np.float32(delta))
+    xb = blockify(frames.to(torch.float32))             # (b, nb, 64)
+    ks = kron_dct_tensor(frames.device)[1 : 1 + num_ac]
+    valid = slot_valid(b, nb, num_ac, total_bits, 0, frames.device)
+    bits = payload_bits.reshape(b, nb, num_ac)
+    z = xb + _qim_sparse_delta(xb @ ks.T, bits.to(torch.float32), valid,
+                               delta) @ ks              # before the clip
+
+    rows = kron_dct_tensor(frames.device)[: rows_per_block(num_ac) * BLOCK]
+
+    def read(zs, valid, bits):
+        """(truncated blocks, their valid slots that K2's plain version
+        reads wrong)."""
+        s = zs.clamp(0.0, 255.0).to(torch.int32).to(torch.float32)
+        got = _extract_bits(s @ rows.T, delta)[..., 1 : 1 + num_ac]
+        return s, valid & (got != bits)
+
+    s, wrong = read(z, valid, bits)
+    bad = wrong.any(-1)                                 # (b, nb)
+    blocks, ran = int(bad.sum()), 0
+    shift = torch.zeros((b, nb), dtype=torch.float32, device=frames.device)
+    for _ in range(repair_rounds if delta > 0 else 0):
+        at = bad.nonzero(as_tuple=True)
+        if not at[0].numel():
+            break
+        ran += at[0].numel()
+        zs = z[at] + shift[at][:, None]
+        shift[at] += shift_rule(zs.amin(-1), zs.amax(-1))
+        s_at, wrong_at = read(z[at] + shift[at][:, None], valid[at], bits[at])
+        s[at], wrong[at] = s_at, wrong_at
+        bad[at] = wrong_at.any(-1)
+    residual = wrong.sum(dtype=torch.int32)
+    counts = repair_counter(frames.device)
+    counts += torch.tensor([blocks, ran, int(residual)], dtype=torch.int64,
+                           device=frames.device)
+    stego = unblockify(s, h, w).to(torch.uint8)
+    return stego, _bits_per_frame(b, cap, total_bits, 0, frames.device), \
+        residual
+
+
 # --- kernel wrappers ----------------------------------------------------------
 
 def _check_frames(frames: torch.Tensor) -> tuple[int, int, int]:
@@ -668,6 +759,46 @@ def embed_and_check_frames(
            errors.data_ptr(), dev.index, b, h, w, num_ac, int(total_bits),
            float(delta), _stream(dev))
     return stego, bpf, errors
+
+
+def embed_and_repair_frames(
+        frames: torch.Tensor, payload_bits: torch.Tensor, total_bits: int,
+        delta: float, num_ac: int, repair_rounds: int = 3
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's repair variant: the verified embed in one kernel. Each block
+    is embedded, re-extracted from its quantized stego and compared with
+    its payload bits in registers; a block that reads back wrong takes
+    the DC-shift repair rule of ops/verified._repair, at most
+    `repair_rounds` times, and stops once it reads right. Returns (stego
+    (B, H, W) uint8, bits per frame (B,) int32, residual: the valid slots
+    still wrong, an int32 scalar) on the frames' device; nothing here
+    waits for the device. Global bit 0 is the payload's first bit (no bit
+    offset). On the card one launch behind one memset of the residual; it
+    adds its counts to repair_counter(device). At repair_rounds 0 the
+    stego is K3's and the residual the sum of K3's counts."""
+    b, h, w = _check_frames(frames)
+    _check_payload(payload_bits, frames, num_ac)
+    if (isinstance(repair_rounds, bool) or not isinstance(repair_rounds, int)
+            or not 0 <= repair_rounds < 2**31):
+        raise ValueError(f"repair_rounds must be a whole number >= 0, got "
+                         f"{repair_rounds!r}")
+    if frames.device.type == "cpu":
+        return embed_and_repair_frames_plain(frames, payload_bits, total_bits,
+                                             delta, num_ac, repair_rounds)
+    dev = frames.device
+    stego = torch.empty_like(frames)
+    if not stego.numel():  # no block, no bit, no error
+        return (stego, torch.zeros(b, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    bpf = torch.empty(b, dtype=torch.int32, device=dev)
+    # zeroed by the entry point on the stream the kernel launches on
+    residual = torch.empty((), dtype=torch.int32, device=dev)
+    launch("stegotpu_qim_embed_repair", frames.data_ptr(),
+           payload_bits.data_ptr(), stego.data_ptr(), bpf.data_ptr(),
+           residual.data_ptr(), repair_counter(dev).data_ptr(), dev.index, b,
+           h, w, num_ac, int(total_bits), float(delta), repair_rounds,
+           _stream(dev))
+    return stego, bpf, residual
 
 
 def embed_and_extract_frames_rows(

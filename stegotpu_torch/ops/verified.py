@@ -16,15 +16,21 @@ exceeds 255 are unfixable by a DC shift; they are counted in the returned
 residual.
 
 ``embed_frames_verified`` is the repair loop in plain PyTorch (XLA in the
-JAX package, not a Pallas kernel). ``embed_frames_verified_fast`` runs the
-CUDA kernel K3 (ops/stripe_kernel.embed_and_check_frames) and takes the
-repair loop only when K3 counted a wrong bit.
+JAX package, not a Pallas kernel), over the whole batch. On the card
+``embed_frames_verified_fast`` runs the whole verified embed as one CUDA
+kernel, K3's repair variant (ops/stripe_kernel.embed_and_repair_frames):
+each block is embedded, read back and, where it reads wrong, repaired by
+the same rule in registers, so the host decides nothing and waits for
+nothing. Elsewhere (the CPU, ``kernel='xla'``, delta <= 0) it runs K3
+(ops/stripe_kernel.embed_and_check_frames) and takes the repair loop only
+when K3 counted a wrong bit.
 
-The repair loop runs inside the span ``stegotpu_torch.verified.repair``
-and the fast path's wait for K3's count inside ``stegotpu_torch.host_wait``
-(utils/profiling.annotate). ``REPAIRS`` counts on the host, with no device
-read: ``"checked"`` fast-path calls, ``"repaired"`` calls that took the
-repair loop, ``"rounds"`` repair rounds run.
+The repair, the loop or the kernel, runs inside the span
+``stegotpu_torch.verified.repair``, and the wait for K3's count inside
+``stegotpu_torch.host_wait`` (utils/profiling.annotate). ``REPAIRS``
+counts on the host, with no device read: ``"checked"`` fast-path calls,
+``"repaired"`` calls that took the repair loop, ``"rounds"`` repair
+rounds run. The kernel counts on the device; ``repair_counts`` reads both.
 """
 
 from __future__ import annotations
@@ -129,12 +135,8 @@ def _repair(frames, payload_bits, total_bits, delta, num_ac, repair_rounds,
         REPAIRS["rounds"] += 1
         got = recovered_bits(stego)
         bad_block = (valid & (got != bits_f)).any(dim=-1)  # (B, nb)
-        lo = x_float.amin(dim=-1)
-        hi = x_float.amax(dim=-1)
-        # lift out of the floor, but never past the ceiling (and vice versa)
-        up = torch.minimum((-lo).clamp(min=0.0), (255.0 - hi).clamp(min=0.0))
-        down = -torch.minimum((hi - 255.0).clamp(min=0.0), lo.clamp(min=0.0))
-        pixel_shift = torch.where(lo < 0.0, up, down)
+        pixel_shift = stripe_kernel.shift_rule(x_float.amin(dim=-1),
+                                               x_float.amax(dim=-1))
         dc_shift = dc_shift + torch.where(bad_block, 8.0 * pixel_shift, 0.0)
         x_float = synthesize_float(dc_shift)
         stego = finalize(x_float)
@@ -156,13 +158,16 @@ def embed_frames_verified_fast(
     kernel: str = "auto",
     precision: str = "wire",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Verified embed on the fast path: K3 embeds, re-extracts the
-    quantized stego in the same pass and counts wrong payload bits. The
-    repair decision is taken on the HOST from the summed count, as in the
-    JAX package (``int()`` waits for the device once per batch): only when
-    clipping actually flipped bits does the repair loop run. Kernels that
-    are not stripe kernels (``kernel='xla'``) take the repair loop
-    directly, by the same rule as the unverified dispatch.
+    """Verified embed on the fast path. On the card (stripe kernels,
+    delta > 0) one launch of K3's repair variant embeds, reads back and
+    repairs each block that reads wrong in registers; nothing waits for
+    the device. Elsewhere K3 embeds, re-extracts the quantized stego in
+    the same pass and counts wrong payload bits, and the repair decision
+    is taken on the HOST from the summed count, as in the JAX package
+    (``int()`` waits for the device once per batch): only when clipping
+    actually flipped bits does the repair loop run. Kernels that are not
+    stripe kernels (``kernel='xla'``) take the repair loop directly, by
+    the same rule as the unverified dispatch.
 
     precision: accepted for interchangeability. The JAX package recounts
     the residual under 'fast' for its bf16 reader; the port's 'fast'
@@ -174,6 +179,11 @@ def embed_frames_verified_fast(
         REPAIRS["repaired"] += 1
         return embed_frames_verified(frames, payload_bits, total_bits, delta,
                                      num_ac, repair_rounds=repair_rounds)
+    if frames.device.type == "cuda" and float(np.float32(delta)) > 0:
+        with annotate("stegotpu_torch.verified.repair"):
+            return stripe_kernel.embed_and_repair_frames(
+                frames, payload_bits, total_bits, delta, num_ac,
+                repair_rounds)
     stego, bpf, errors = stripe_kernel.embed_and_check_frames(
         frames, payload_bits, total_bits, delta, num_ac)
     with annotate("stegotpu_torch.host_wait"):
@@ -184,3 +194,23 @@ def embed_frames_verified_fast(
     REPAIRS["repaired"] += 1
     return embed_frames_verified(frames, payload_bits, total_bits, delta,
                                  num_ac, repair_rounds=repair_rounds)
+
+
+# the names under which repair_counts gives stripe_kernel.repair_counter's
+# counts, the repair variant's, beside REPAIRS'
+VARIANT_COUNTS = ("blocks_wrong", "block_rounds", "residual_slots")
+
+
+def repair_counts(device: torch.device | str) -> dict[str, int]:
+    """What the verified embed counted, read on the host; a copy from the
+    device that waits for it, for tests, chip_smoke.py and ``--timing``,
+    never on the hot path. REPAIRS' host counts (``"checked"``,
+    ``"repaired"``, ``"rounds"``: calls, calls that took the repair loop,
+    the loop's rounds) and the repair variant's on `device` since the
+    process started (stripe_kernel.repair_counter): ``"blocks_wrong"``
+    blocks that read back wrong after the embed, ``"block_rounds"`` repair
+    rounds summed over blocks, ``"residual_slots"`` valid slots still
+    wrong after the last round."""
+    return {**{k: REPAIRS[k] for k in ("checked", "repaired", "rounds")},
+            **dict(zip(VARIANT_COUNTS,
+                       stripe_kernel.repair_counter(device).tolist()))}

@@ -4,8 +4,8 @@ Counterpart of ``stegotpu/pipeline.py``. The host logic is the JAX
 package's, line for line; only the device sites differ: arrays go to the
 device as ``torch.from_numpy(...).to(device)`` and come back as
 ``.cpu().numpy()``, on the ``device`` the caller names (no global device
-guessing). The verified embed runs the CUDA kernel K3 through
-ops/verified.py. With a device mesh (parallel/mesh.py) each batch scatters
+guessing). The verified embed runs K3's repair variant, one CUDA kernel,
+through ops/verified.py. With a device mesh (parallel/mesh.py) each batch scatters
 over the mesh's devices: frames over 'data', 8-px block rows over 'space'.
 
 Same observable semantics as the reference's L3 orchestration

@@ -20,7 +20,8 @@ H100_FP32_FLOPS = 67e12
 # separable transforms of the RN slot rows per 8x8 block: a forward or an
 # inverse is two passes of RN*64 FMAs
 _TRANSFORMS = {
-    "embed": 2, "embed_check": 3, "roundtrip_packed": 3, "roundtrip_rows": 3,
+    "embed": 2, "embed_check": 3, "embed_repair": 3, "roundtrip_packed": 3,
+    "roundtrip_rows": 3,
     "embed_packedin": 2, "roundtrip_dual": 3,
     "extract_packed": 1, "extract_rows": 1,
     "ablation_full": 1, "ablation_no_qim": 1, "ablation_full_notrunc": 1,
@@ -51,6 +52,10 @@ def work(kernel: str, b: int, h: int, w: int, num_ac: int,
     nbytes = {
         "embed": embed,
         "embed_check": embed + 4 * b,      # + errors per frame
+        # K3's repair variant: + its residual and counts; the rounds that
+        # blocks take add work in registers, none in memory, and are not
+        # counted (no input needs them)
+        "embed_repair": embed + 4 + 8 * 3 * 32,
         "roundtrip_packed": embed + packed,
         "roundtrip_dual": embed + packed,
         "roundtrip_rows": embed + rows,

@@ -375,9 +375,10 @@ def test_fused_kernels_launch_once_each(dev, tmp_path):
 
 
 def test_verified_fast_path_on_card(dev):
-    """embed_frames_verified_fast launches K3; on a clean cover it keeps
-    K3's stego, on a flat-black cover it repairs to residual 0, and K2
-    reads the payload back exactly from both."""
+    """embed_frames_verified_fast launches K3's repair variant (and not
+    K3); on a clean cover it keeps K3's stego, on a flat-black cover it
+    repairs to residual 0, and K2 reads the payload back exactly from
+    both."""
     from stegotpu_torch.ops.verified import (embed_frames_verified,
                                              embed_frames_verified_fast)
 
@@ -388,11 +389,17 @@ def test_verified_fast_path_on_card(dev):
     for frames in (torch.from_numpy(rng.integers(60, 196, (2, h, w), np.uint8)),
                    torch.zeros((2, h, w), dtype=torch.uint8)):
         frames = frames.to(dev)
-        before = sk.LAUNCHES["stegotpu_qim_embed_check"]
+        before = _launches("stegotpu_qim_embed_repair",
+                           "stegotpu_qim_embed_check")
         stego, bpf, residual = embed_frames_verified_fast(
             frames, payload, 2 * cap, 20.0, num_ac)
-        assert sk.LAUNCHES["stegotpu_qim_embed_check"] == before + 1
+        assert _launches("stegotpu_qim_embed_repair",
+                         "stegotpu_qim_embed_check") == (before[0] + 1,
+                                                         before[1])
         assert int(residual) == 0 and bpf.tolist() == [cap, cap]
+        if frames.max() > 0:  # the clean cover: K3's stego
+            assert torch.equal(stego, sk.embed_and_check_frames(
+                frames, payload, 2 * cap, 20.0, num_ac)[0])
         assert torch.equal(sk.extract_frames(stego, 20.0, num_ac), payload)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
